@@ -1,0 +1,182 @@
+"""Lazy build and loading of the hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` at
+the first kernel call — one ``nvcc -c`` per ``.cu`` file, all started
+together, then one link into a shared library with a plain C interface
+that is loaded with ``ctypes``.  The library lands in
+``secp256k1_zkp_tpu_torch/_build/`` under a name keyed by a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses.
+
+Nothing here catches a failure: a missing ``nvcc`` or a compile error
+raises with the compiler's output, and every C entry point returns
+``cudaGetLastError()`` which :func:`check` turns into an exception.
+
+Also home of the launch counters: each kernel wrapper calls
+:func:`count_launch` exactly where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+# name -> argtypes (pointers and the stream as c_void_p, sizes as c_int)
+_SIGNATURES = {
+    "secp_mulmod_chain": [_VP, _VP, _VP, _INT, _INT, _VP],
+    "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "secp_fixedbase_digits": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP],
+}
+
+_LIB = None
+BUILD_SECONDS = None        # wall seconds of the build done by this process
+LAUNCH_COUNTS: dict[str, int] = {
+    "mulmod_chain": 0, "ecdsa_prep": 0, "fixedbase_digits": 0,
+    "ecmult_glv": 0}
+
+
+def count_launch(name: str) -> None:
+    LAUNCH_COUNTS[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of secp256k1_zkp_tpu_torch cannot be built here")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (in parallel) and link them; returns the .so path.
+    Reuses a library already built from identical sources."""
+    global BUILD_SECONDS
+    out = BUILD_DIR / f"libsecp_kernels_{source_hash()}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    t0 = time.time()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    procs = []
+    for cu in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{cu.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", str(cu),
+               "-o", str(obj)]
+        procs.append((cu, obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cu, obj, cmd, p in procs:
+        text, _ = p.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{text}")
+        if p.returncode != 0:
+            failed.append(cu.name)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(log))
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for _, o, _, _ in procs]
+    r = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"link failed:\n{r.stdout}")
+    os.replace(tmp, out)            # atomic: concurrent processes agree
+    for _, obj, _, _ in procs:
+        obj.unlink()
+    BUILD_SECONDS = time.time() - t0
+    return out
+
+
+def build_log() -> str:
+    p = BUILD_DIR / "build.log"
+    return p.read_text() if p.exists() else ""
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        dll = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+        dll.secp_cuda_error_string.argtypes = [_INT]
+        dll.secp_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = dll
+    return _LIB
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib().secp_cuda_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"error {code} ({msg})")
+
+
+def stream_ptr() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_rows(t, rows: int, name: str, lanes: int | None = None) -> int:
+    """Validate a kernel operand: CUDA, int32, contiguous ``[rows, B]``
+    with B >= 1.  Returns B.  Raises on anything the kernels do not take
+    (an empty batch launches nothing, so it is refused before the launch
+    is counted)."""
+    import torch
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32 limbs, got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] != rows:
+        raise ValueError(f"{name}: expected shape [{rows}, B], got "
+                         f"{tuple(t.shape)}")
+    if t.shape[1] == 0:
+        raise ValueError(f"{name}: expected at least one lane")
+    if lanes is not None and t.shape[1] != lanes:
+        raise ValueError(f"{name}: expected {lanes} lanes, got {t.shape[1]}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.shape[1]

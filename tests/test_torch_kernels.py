@@ -1,0 +1,300 @@
+"""The port's four kernels, each as a whole, on the CPU: the plain version
+that sits beside each kernel wrapper against the composition the JAX
+kernel body performs and against Python integers.
+
+* ``ecdsa_prep`` (B1): the JAX body's dataflow ``inv_limbs16 -> _mul_limbs_n
+  -> _canon_n -> _glv_split -> recode_w5 / recode_w7_256``, run op by op.
+* ``fixedbase_digits`` (B2): the JAX body's row loop written out with
+  ``_gather_const`` / ``jp_add_aff`` under ``jax.disable_jit()`` on four
+  lanes, for the last 10 of the 37 rows (scalars whose other digits are
+  zero); full-width scalars against Python integers.
+* ``ecmult_glv`` (B3): against Python integers (``hostcurve``): X/Z^2,
+  Y/Z^3 of the output equal u1*G + u2*P, the infinity flag, and ``ok`` for
+  r, for r+n, for a wrong r and for the gated-off second candidate.  Its
+  building blocks are held against the JAX formulas in test_torch_ops.py.
+* ``mulmod_chain`` (B15a): against the JAX chain and ``pow``.
+
+Tolerance: 0 (integers).  Digits and flags are compared row for row;
+jacobian coordinates are canonical in the port and are compared with the
+canonicalised JAX values.  On CPU tensors a wrapper takes its plain
+version, so calling the wrapper here exercises the same code path the
+tests of the slice use; the launch counters must not move.
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from secp256k1_zkp_tpu.ops import pallas_divsteps as JDS
+from secp256k1_zkp_tpu.ops import pallas_field as JPF
+from secp256k1_zkp_tpu.ops import pallas_gen as JGEN
+from secp256k1_zkp_tpu.ops import pallas_group as JPG
+from secp256k1_zkp_tpu.ops import pallas_scalar as JPS
+from secp256k1_zkp_tpu_torch.ops import _build
+from secp256k1_zkp_tpu_torch.ops import cuda_field as TF
+from secp256k1_zkp_tpu_torch.ops import cuda_gen as TGEN
+from secp256k1_zkp_tpu_torch.ops import cuda_group as TG
+from secp256k1_zkp_tpu_torch.ops import cuda_scalar as TS
+from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
+
+from test_torch_ops import ints, jcanon, jrows, rand, rows_np
+
+P, N = hc.P, hc.N
+I32 = torch.int32
+
+
+def trows32(vals, k=16):
+    return torch.from_numpy(rows_np(vals, k).astype(np.int32))
+
+
+def _stack(rows):
+    return np.stack([np.asarray(r) for r in rows]).astype(np.int64).tolist()
+
+
+def test_mulmod_chain():
+    rng = np.random.default_rng(30)
+    x = [0, 1, P - 1, P, 2 ** 256 - 1] + rand(rng, 2 ** 256, 11)
+    y = x[::-1]
+    for n in (1, 5):
+        before = dict(_build.LAUNCH_COUNTS)
+        got = TF.mulmod_chain(trows32(x), trows32(y), n)
+        assert _build.LAUNCH_COUNTS == before      # CPU: no kernel launch
+        assert got.dtype == I32 and got.shape == (16, len(x))
+        jx = jrows(x)
+        with jax.disable_jit():
+            for _ in range(n):
+                jx = JPF._mul_limbs(jx, jrows(y))
+        assert ints(got) == jcanon(jx) \
+            == [a * pow(b, n, P) % P for a, b in zip(x, y)]
+
+
+def test_ecdsa_prep_vs_jax_body():
+    rng = np.random.default_rng(31)
+    m = rand(rng, N, 4) + [0, 1, N - 1, 5]
+    r = rand(rng, N, 4) + [1, N - 1, 7, 9]
+    s = rand(rng, N, 4) + [1, N - 1, 3, 0]          # last lane: s = 0
+    before = dict(_build.LAUNCH_COUNTS)
+    digs, gdigs, flags = TS.ecdsa_prep(trows32(m), trows32(r), trows32(s))
+    assert _build.LAUNCH_COUNTS == before
+    assert digs.shape == (52, 8) and gdigs.shape == (37, 8)
+    assert flags.shape == (2, 8) and digs.dtype == I32
+
+    # the JAX kernel body, op by op (pallas_scalar._ecdsa_prep_kernel)
+    sinv = JDS.inv_limbs16(jrows(s), N)
+    u1 = JPS._canon_n(JPS._mul_limbs_n(jrows(m), sinv))
+    u2 = JPS._canon_n(JPS._mul_limbs_n(jrows(r), sinv))
+    a1, neg1, a2, neg2 = JPS._glv_split(u2)
+    assert digs.tolist() == _stack(JPS.recode_w5(a1) + JPS.recode_w5(a2))
+    assert gdigs.tolist() == _stack(JPS.recode_w7_256(u1))
+    assert flags.tolist() == _stack([neg1, neg2])
+
+    # and Python integers: the digit rows decode to u1 and to u2's halves
+    for j in range(8):
+        si = pow(s[j], -1, N) if s[j] else 0
+        w1, w2 = m[j] * si % N, r[j] * si % N
+
+        def dec(rows, w):
+            acc = 0
+            for d in rows:
+                acc = acc * (1 << w) + (-(d & 0xFF) if d >> 8 else d & 0xFF)
+            return acc
+
+        assert dec(gdigs[:, j].tolist(), 7) == w1
+        h1 = dec(digs[:26, j].tolist(), 5) * (-1 if flags[0, j] else 1)
+        h2 = dec(digs[26:, j].tolist(), 5) * (-1 if flags[1, j] else 1)
+        assert (h1 + TS.LAMBDA * h2) % N == w2
+    assert not digs[:, 7].any() and not gdigs[:, 7].any()   # s = 0 lane
+
+
+JAX_ROWS = 10       # comb rows the JAX loop is run for (see below)
+
+
+def test_fixedbase_digits_vs_jax_body():
+    """The port runs all 37 rows.  The JAX loop costs ~1.6 s per eager
+    complete add on this CPU, so it is run for the last ``JAX_ROWS`` rows
+    only, on scalars < 2^(7*JAX_ROWS - 1) whose leading rows are all zero
+    (a zero digit masks the add and leaves the accumulator as it was)."""
+    rng = np.random.default_rng(32)
+    top = 1 << (7 * JAX_ROWS - 1)
+    ks = rand(rng, top, 2) + [0, 2 ** 7 * 65 + 64]  # u1 = 0 -> infinity lane
+    gd = TS.recode_w7_256(torch.from_numpy(
+        rows_np(ks).astype(np.int64))).to(I32)
+    assert not gd[:JGEN.NW7 - JAX_ROWS].any()
+    before = dict(_build.LAUNCH_COUNTS)
+    x, y, z = TGEN.fixedbase_digits(gd)
+    assert _build.LAUNCH_COUNTS == before
+    assert x.dtype == I32 and x.shape == (16, 4)
+
+    # the JAX kernel body's row loop (pallas_gen._gen_kernel)
+    tab = jnp.asarray(JGEN._comb_tables_np())
+    jd = jnp.asarray(gd.numpy().astype(np.uint32))
+    with jax.disable_jit():
+        acc = JPG.jp_inf(jd[0])
+        for i in range(JGEN.NW7 - JAX_ROWS, JGEN.NW7):
+            mag, sgn = jd[i] & 0xFF, jd[i] >> 8
+            start = (JGEN.NW7 - 1 - i) * JGEN._TAB_STRIDE
+            gx, gy = JGEN._gather_const(
+                tab[:, start:start + JGEN._TAB_STRIDE], mag)
+            gy = JPG.fe_select(sgn != 0, JPG.fe_weak(JPG.fe_neg(gy)), gy)
+            acc = JPG.jp_add_aff(acc, gx, gy, (mag == 0).astype(jnp.uint32))
+    inf = [bool(v) for v in np.asarray(acc.inf)]
+    assert inf == [False, False, True, False]
+    jx, jy, jz = jcanon(acc.x), jcanon(acc.y), jcanon(acc.z)
+    px, py, pz = ints(x), ints(y), ints(z)
+    for j, k in enumerate(ks):
+        if inf[j]:
+            assert pz[j] == 0                      # z = 0 marks infinity
+            continue
+        assert (px[j], py[j], pz[j]) == (jx[j], jy[j], jz[j])
+        zi = pow(pz[j], -1, P)
+        assert (px[j] * zi * zi % P, py[j] * zi ** 3 % P) == hc.mul(k)
+
+
+def test_fixedbase_digits_full_width_vs_ints():
+    rng = np.random.default_rng(34)
+    ks = rand(rng, N, 5) + [1, N - 1, 2 ** 255]
+    gd = TS.recode_w7_256(torch.from_numpy(
+        rows_np(ks).astype(np.int64))).to(I32)
+    x, y, z = TGEN.fixedbase_digits(gd)
+    for j, (xv, yv, zv) in enumerate(zip(ints(x), ints(y), ints(z))):
+        zi = pow(zv, -1, P)
+        assert (xv * zi * zi % P, yv * zi ** 3 % P) == hc.mul(ks[j])
+
+
+def _point_with_x_at_least_n():
+    """A curve point whose x lies in [n, p): x = n + t for the first t
+    that makes x^3 + 7 a square (p = 3 mod 4)."""
+    t = 0
+    while True:
+        x = N + t
+        y = pow((x ** 3 + 7) % P, (P + 1) // 4, P)
+        if y * y % P == (x ** 3 + 7) % P:
+            return t, (x, y)
+        t += 1
+
+
+def test_ecmult_glv_vs_ints():
+    rng = np.random.default_rng(33)
+    t_small, r0 = _point_with_x_at_least_n()
+    pts = [hc.mul(k or 1) for k in rand(rng, N, 4)]
+    u1 = rand(rng, N, 4)
+    u2 = rand(rng, N, 4)
+    # lane 4: u1 = 0 (comb result is infinity); lane 5: u2 = 0;
+    # lane 6: P infinite; lane 7: u1*G + u2*G = infinity;
+    # lanes 8, 9: R = r0 whose x >= n (second candidate of the check)
+    lanes = [(u1[i], u2[i], pts[i], False) for i in range(4)]
+    lanes += [(0, u2[0], pts[0], False), (u1[1], 0, pts[1], False),
+              (u1[2], u2[2], pts[2], True), (u1[3], N - u1[3], hc.G, False),
+              (0, 1, r0, False), (0, 1, r0, False)]
+    want = []
+    for a, b, pt, pinf in lanes:
+        want.append(hc.add(hc.mul(a), None if pinf else hc.mul(b, pt)))
+    # rx per lane and the expected check result
+    rx, ok = [], []
+    for j, w in enumerate(want):
+        xr = 0 if w is None else w[0]
+        if j == 1:
+            rx.append((xr + 1) % N); ok.append(False)        # wrong r
+        elif j == 2:
+            # X == (rx + n) mod p holds, but rx >= p - n gates it off
+            rx.append(xr + P - N); ok.append(False)
+            assert xr + P - N < 2 ** 256 and (xr + P - N + N) % P == xr
+        elif j == 8:
+            rx.append(t_small); ok.append(True)              # r + n == x(R)
+        elif j == 9:
+            rx.append(t_small + 1); ok.append(False)
+        else:
+            rx.append(xr % N); ok.append(w is not None and xr < N)
+
+    # digit streams through the prep with s = 1: u1 = m, u2 = r
+    one = trows32([1] * len(lanes))
+    digs, gdigs, flags = TS.ecdsa_prep(trows32([c[0] for c in lanes]),
+                                       trows32([c[1] for c in lanes]), one)
+    gjac = TGEN.fixedbase_digits(gdigs)
+    pinf = torch.tensor([c[3] for c in lanes])
+    px = trows32([c[2][0] for c in lanes])
+    py = trows32([c[2][1] for c in lanes])
+    before = dict(_build.LAUNCH_COUNTS)
+    x, y, z, inf, okv = TG.ecmult_glv(digs, flags, px, py, pinf, gjac,
+                                      rx=trows32(rx))
+    assert _build.LAUNCH_COUNTS == before
+    assert x.dtype == I32 and x.shape == (16, len(lanes))
+    assert inf.dtype == torch.bool and okv.dtype == torch.bool
+    xs, ys, zs = ints(x), ints(y), ints(z)
+    for j, w in enumerate(want):
+        assert bool(inf[j]) == (w is None), j
+        if w is not None:
+            zi = pow(zs[j], -1, P)
+            assert (xs[j] * zi * zi % P, ys[j] * zi ** 3 % P) == w, j
+    assert okv.tolist() == ok
+    # without rx the check is off and ok is all-false
+    *_, ok2 = TG.ecmult_glv(digs, flags, px, py, pinf, gjac)
+    assert not ok2.any()
+
+
+def test_comb_table_matches_jax_and_hostcurve():
+    from secp256k1_zkp_tpu_torch.utils import convert
+    mine = TGEN.comb_tables()
+    assert mine.shape == (37, 64, 2, 16) and mine.dtype == torch.int64
+    conv = convert.comb_table_from_jax(JGEN._comb_tables_np())
+    assert torch.equal(conv, mine)
+    # spot entries against plain double-and-add
+    for v, d in ((0, 1), (0, 64), (5, 17), (36, 3)):
+        xw, yw = hc.mul((d << (7 * v)) % N)
+        got = mine[v, d - 1].tolist()
+        assert sum(l << (16 * i) for i, l in enumerate(got[0])) == xw
+        assert sum(l << (16 * i) for i, l in enumerate(got[1])) == yw
+    # the kernel's packed words hold the same bits
+    words = TGEN.pack_words(mine).numpy().view(np.uint32).astype(np.int64)
+    limbs = mine.numpy()
+    assert ((words & 0xFFFF) == limbs[..., 0::2]).all()
+    assert ((words >> 16) == limbs[..., 1::2]).all()
+
+
+def test_cuda_constants_header():
+    """csrc/consts.cuh carries the same curve constants as the Python
+    modules and the JAX package."""
+    text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
+
+    def words(name):
+        body = re.search(rf"#define SECP_{name}_WORDS \{{([^}}]*)\}}",
+                         text).group(1)
+        ws = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+        return sum(w << (32 * i) for i, w in enumerate(ws))
+
+    want = {"P": P, "N": N, "RED_N": 2 ** 256 - N, "N_HALF": (N - 1) // 2,
+            "LAMBDA": JPS.LAMBDA, "MINUS_B1": JPS._MINUS_B1,
+            "MINUS_B2": JPS._MINUS_B2, "G1": JPS._G1, "G2": JPS._G2,
+            "BETA": JPG._BETA, "GX": hc.GX, "GY": hc.GY, "P_MINUS_N": P - N}
+    for name, val in want.items():
+        assert words(name) == val, name
+    assert (TS.LAMBDA, TS._G1, TS._G2, TS._MINUS_B1, TS._MINUS_B2) == (
+        JPS.LAMBDA, JPS._G1, JPS._G2, JPS._MINUS_B1, JPS._MINUS_B2)
+    assert TG._BETA == JPG._BETA
+    for tag, mod in (("P", P), ("N", N)):
+        body = re.search(rf"#define SECP_MODINV_{tag}_LIMBS \{{([^}}]*)\}}",
+                         text).group(1)
+        limbs = [int(w, 16) for w in body.split(",")]
+        assert sum(l << (30 * i) for i, l in enumerate(limbs)) == mod
+        inv = int(re.search(rf"#define SECP_MODINV_{tag}_INV30 (\w+)u",
+                            text).group(1), 16)
+        assert inv * mod % 2 ** 30 == 1
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    good = torch.zeros((16, 4), dtype=I32)
+    for bad, msg in ((good, "CUDA"), (None, "CUDA")):
+        with pytest.raises(ValueError, match=msg):
+            _build.check_rows(bad, 16, "x")
+    # the sources a build would compile are all there, and keyed by content
+    names = {p.name for p in _build.sources()}
+    assert {"mulmod_chain.cu", "ecdsa_prep.cu", "fixedbase.cu",
+            "ecmult_glv.cu", "fe.cuh", "sc.cuh", "modinv.cuh",
+            "group.cuh"} <= names
+    assert re.fullmatch(r"[0-9a-f]{16}", _build.source_hash())
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
