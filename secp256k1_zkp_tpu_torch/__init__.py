@@ -4,21 +4,26 @@ Same layout as the JAX package so a reader finds the counterpart of each
 file; PyTorch idiom inside: plain functions on tensors, small dataclasses
 of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
 
-=====================  =====================================================
-``ops.limb``           batched base-2^16 modular bignum engine (int64 limbs)
-``ops.field``          GF(p) instance
-``ops.scalar``         GF(n) instance
-``ops.group``          point containers (``GE``/``GEJ``) and constructors
-``ops.cuda_field``     mod-p kernel library, plain versions + ``mulmod_chain``
-``ops.cuda_divsteps``  safegcd modular inverse, plain version
-``ops.cuda_scalar``    mod-n library + the ECDSA *prep* kernel
-``ops.cuda_group``     complete group formulas + the GLV Strauss kernel
-``ops.cuda_gen``       fixed-base comb tables + kernel
-``modules.ecdsa``      batched ECDSA verify (the kernel pipeline)
-``utils.hostcurve``    Python-int curve for table generation
-``utils.convert``      tables and containers of the JAX package -> port
-``csrc/``              the CUDA C++ sources of the four kernels
-=====================  =====================================================
+======================  ====================================================
+``ops.limb``            batched base-2^16 modular bignum engine (int64 limbs)
+``ops.field``           GF(p) instance
+``ops.scalar``          GF(n) instance
+``ops.group``           point containers (``GE``/``GEJ``) and constructors
+``ops.sha256``          SHA-256 and BIP-340 tagged hashes (plain PyTorch)
+``ops.cuda_sha256``     the SHA-256 compression kernel
+``ops.cuda_field``      mod-p library + ``mulmod_chain``, ``lift_x``,
+                        ``schnorr_check``
+``ops.cuda_divsteps``   safegcd modular inverse, plain version
+``ops.cuda_scalar``     mod-n library + the ECDSA *prep* and GLV-split kernels
+``ops.cuda_group``      complete group formulas + the GLV Strauss kernel
+``ops.cuda_gen``        fixed-base comb tables, digit rows + kernel
+``modules.ecdsa``       batched ECDSA verify (the kernel pipeline)
+``modules.schnorrsig``  batched BIP-340 ``lift_x`` and verify
+``utils.hostcurve``     Python-int curve for table generation
+``utils.sha256_host``   host SHA-256 compression for tag midstates
+``utils.convert``       tables and containers of the JAX package -> port
+``csrc/``               the CUDA C++ sources of the eight kernels
+======================  ====================================================
 
 Importing the package needs no CUDA, no compiler and no Triton: the
 kernels are built with ``nvcc`` at the first kernel call (``ops/_build``).

@@ -2,20 +2,33 @@
 
 Counterpart of the JAX package's ``context.selftest`` (a known-answer test
 run at context creation, as the reference C library's
-``secp256k1_selftest`` does).  That one checks the SHA256 compression
-function; SHA256 is not ported yet, so this one checks what the ported
-slice stands on: the field multiply of the kernel library, through
-``mulmod_chain`` — the hand-written kernel on a CUDA device, its plain
-version on the CPU — against Python integers.  ``Context`` and generator
+``secp256k1_selftest`` does).  It runs that test — the SHA256 compression
+of one known message — through the port's host compression
+(``utils/sha256_host``) and through ``ops/sha256.compress`` on the
+device, which on a card is the hand-written SHA-256 kernel.  It also
+checks what the verify slices stand on: the field multiply of the kernel
+library, through ``mulmod_chain`` (the kernel on a CUDA device, its plain
+version on the CPU), against Python integers.  ``Context`` and generator
 blinding wait for the signing slice.
 """
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from .config import resolve_device
 from .ops import cuda_field
+from .ops import sha256 as H
+from .utils import sha256_host
+
+# the JAX package's known-answer test (context.py there): one 64-byte
+# message block, then the padding block of a 64-byte message
+_SHA_BASE = b"secp256k1_zkp_tpu selftest: pluggable compression KAT"
+_SHA_MSG = _SHA_BASE + b"." * (64 - len(_SHA_BASE))
+_SHA_PAD = bytes([0x80] + [0] * 55) + (64 * 8).to_bytes(8, "big")
+_SHA_WANT = "7df9d205f1b40a45c888f99a1b500eb9626ab62d1769a316c066551a9e8eedcc"
 
 _KAT = (
     # (x, y, n): x * y^n mod p
@@ -41,11 +54,33 @@ def selftest_operands(device):
         yield x, y, n, want
 
 
+def _digest_hex(words) -> str:
+    return b"".join(int(w).to_bytes(4, "big") for w in words).hex()
+
+
+def _sha256_kat(device) -> None:
+    """The SHA256 known-answer test, on the host and on ``device``."""
+    st = sha256_host.compress(list(sha256_host.INIT), _SHA_MSG)
+    got = _digest_hex(sha256_host.compress(st, _SHA_PAD))
+    if got != _SHA_WANT:
+        raise RuntimeError(f"SHA256 selftest failure on the host: {got}")
+    state = torch.tensor([sha256_host.INIT], dtype=torch.int64,
+                         device=device)
+    for block in (_SHA_MSG, _SHA_PAD):
+        words = torch.tensor([struct.unpack(">16I", block)],
+                             dtype=torch.int64, device=device)
+        state = H.compress(state, words)
+    got = _digest_hex(state[0].tolist())
+    if got != _SHA_WANT:
+        raise RuntimeError(f"SHA256 selftest failure on {device}: {got}")
+
+
 def selftest(device="cuda") -> None:
-    """Known-answer test of the field multiply on ``device``; raises
-    ``RuntimeError`` on a mismatch (and when ``"cuda"`` is asked for
-    without a card)."""
+    """Known-answer tests of SHA256 and of the field multiply on
+    ``device``; raises ``RuntimeError`` on a mismatch (and when
+    ``"cuda"`` is asked for without a card)."""
     dev = resolve_device(device)
+    _sha256_kat(dev)
     for x, y, n, wants in selftest_operands(dev):
         got = cuda_field.mulmod_chain(x, y, n).cpu().tolist()
         for j, want in enumerate(wants):

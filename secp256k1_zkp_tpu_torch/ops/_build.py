@@ -41,13 +41,18 @@ _SIGNATURES = {
     "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "secp_fixedbase_digits": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP],
+    "secp_lift_x": [_VP, _VP, _VP, _INT, _VP],
+    "secp_glv_only": [_VP, _VP, _VP, _INT, _VP],
+    "secp_schnorr_check": [_VP] * 6 + [_INT, _VP],
+    "secp_sha256": [_VP, _VP, _VP, _INT, _INT, _VP],
 }
 
 _LIB = None
 BUILD_SECONDS = None        # wall seconds of the build done by this process
 LAUNCH_COUNTS: dict[str, int] = {
     "mulmod_chain": 0, "ecdsa_prep": 0, "fixedbase_digits": 0,
-    "ecmult_glv": 0}
+    "ecmult_glv": 0, "lift_x": 0, "glv_only": 0, "schnorr_check": 0,
+    "sha256": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,10 +1,11 @@
 """GF(p) limb arithmetic of the kernel library: plain PyTorch versions and
-the ``mulmod_chain`` kernel.
+the ``mulmod_chain``, ``lift_x`` and ``schnorr_check`` kernels.
 
 Counterpart of the JAX package's ``ops/pallas_field.py`` (``_mul_limbs``,
-``_sqr_limbs``, ``_reduce_cols``, ``_canon_p``, ``mulmod_chain``).  A
-256-bit element is **limb-major**: ``[16, B]`` base-2^16 limbs with the
-batch innermost, the layout of every kernel operand.  Kernel operands and
+``_sqr_limbs``, ``_reduce_cols``, ``_canon_p``, ``mulmod_chain``,
+``lift_x_tpu``, ``schnorr_check_tpu``).  A 256-bit element is
+**limb-major**: ``[16, B]`` base-2^16 limbs with the batch innermost, the
+layout of every kernel operand.  Kernel operands and
 results are ``int32`` (the bits of the reference's ``uint32``); the plain
 versions compute in ``int64``.
 
@@ -23,6 +24,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .cuda_divsteps import inv_limbs16
 
 LIMBS = 16
 MASK16 = 0xFFFF
@@ -153,3 +155,113 @@ def mulmod_chain(x: torch.Tensor, y: torch.Tensor, n: int = 1):
         x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, int(n),
         _build.stream_ptr()), "mulmod_chain")
     return out
+
+
+# ---------------------------------------------------------------------------
+# BIP-340 lift_x and the Schnorr acceptance check
+# ---------------------------------------------------------------------------
+
+
+def _sqr_n(a: torch.Tensor, n: int) -> torch.Tensor:
+    for _ in range(n):
+        a = sqr_limbs(a)
+    return a
+
+
+def pow_sqrt(a: torch.Tensor) -> torch.Tensor:
+    """a^((p+1)/4) on weak limbs (a square root of a wherever one exists),
+    by the reference's fixed chain — the one of ``csrc/fe.cuh
+    fe_pow_sqrt``: 253 squarings and 13 multiplies."""
+    x2 = mul_limbs(sqr_limbs(a), a)
+    x3 = mul_limbs(sqr_limbs(x2), a)
+    x6 = mul_limbs(_sqr_n(x3, 3), x3)
+    x9 = mul_limbs(_sqr_n(x6, 3), x3)
+    x11 = mul_limbs(_sqr_n(x9, 2), x2)
+    x22 = mul_limbs(_sqr_n(x11, 11), x11)
+    x44 = mul_limbs(_sqr_n(x22, 22), x22)
+    x88 = mul_limbs(_sqr_n(x44, 44), x44)
+    x176 = mul_limbs(_sqr_n(x88, 88), x88)
+    x220 = mul_limbs(_sqr_n(x176, 44), x44)
+    x223 = mul_limbs(_sqr_n(x220, 3), x3)
+    t = mul_limbs(_sqr_n(x223, 23), x22)
+    t = mul_limbs(_sqr_n(t, 6), x2)
+    return _sqr_n(t, 2)
+
+
+def _neg_canon(y: torch.Tensor) -> torch.Tensor:
+    """p - y for canonical y, canonical (y = 0 -> 0):
+    (2^256 - 1 - y) + (p + 1) carries out exactly once."""
+    t, _ = ripple((MASK16 - y) + const_rows(P_PRIME + 1, y))
+    return canon_p(t)
+
+
+def lift_x_ref(x: torch.Tensor):
+    """Plain version of :func:`lift_x` (any device)."""
+    x = x.to(I64)
+    y2 = weak_p(mul_limbs(sqr_limbs(x), x) + const_rows(7, x))
+    y = canon_p(pow_sqrt(y2))
+    ok = (canon_p(sqr_limbs(y)) == canon_p(y2)).all(0)
+    odd = (y[0] & 1) == 1
+    y = torch.where(odd[None, :], _neg_canon(y), y)
+    return y.to(torch.int32), ok
+
+
+def lift_x(x: torch.Tensor):
+    """BIP-340 lift_x on ``[16, B]`` int32 limb-major x (limbs <= 0xFFFF).
+
+    Returns (y ``[16, B]`` int32, ok ``[B]`` bool): y is the canonical even
+    one of the two roots of x^3 + 7, taken as (x^3 + 7)^((p+1)/4) and
+    negated where odd; ok says y^2 == x^3 + 7.  Where ok is false, y is
+    still that even-selected power (the caller masks the lane).
+
+    CUDA tensors go through the hand-written kernel (``csrc/lift_x.cu``);
+    CPU tensors through the plain version."""
+    if not x.is_cuda:
+        return lift_x_ref(x)
+    lanes = _build.check_rows(x, LIMBS, "lift_x x")
+    y = torch.empty_like(x)
+    ok = torch.empty((lanes,), dtype=torch.int32, device=x.device)
+    lib = _build.lib()
+    _build.count_launch("lift_x")
+    _build.check(lib.secp_lift_x(
+        x.data_ptr(), y.data_ptr(), ok.data_ptr(), lanes,
+        _build.stream_ptr()), "lift_x")
+    return y, ok != 0
+
+
+def schnorr_check_ref(x, y, z, inf, rx):
+    """Plain version of :func:`schnorr_check` (any device)."""
+    X, Y, Z, xr = (t.to(I64) for t in (x, y, z, rx))
+    eq = (canon_p(mul_limbs(xr, sqr_limbs(Z))) == canon_p(X)).all(0)
+    w = inv_limbs16(canon_p(Z), P_PRIME)          # inv(0) = 0
+    yaff = canon_p(mul_limbs(Y, mul_limbs(sqr_limbs(w), w)))
+    even = (yaff[0] & 1) == 0
+    return eq & even & ~inf.to(torch.bool)
+
+
+def schnorr_check(x, y, z, inf, rx):
+    """BIP-340 acceptance of a jacobian R against r: not infinity,
+    X == r * Z^2 and Y * Z^-3 even.
+
+    x, y, z, rx: ``[16, B]`` int32 limb-major (limbs <= 0xFFFF, values
+    < 2^256); inf: ``[B]`` bool.  Returns ``[B]`` bool.  CUDA tensors go
+    through the hand-written kernel (``csrc/schnorr_check.cu``); CPU
+    tensors through the plain version."""
+    if not x.is_cuda:
+        return schnorr_check_ref(x, y, z, inf, rx)
+    lanes = _build.check_rows(x, LIMBS, "schnorr_check x")
+    for name, t in (("y", y), ("z", z), ("rx", rx)):
+        _build.check_rows(t, LIMBS, f"schnorr_check {name}", lanes)
+    if not inf.is_cuda or inf.shape != (lanes,):
+        raise ValueError("schnorr_check inf: expected a CUDA [B] mask")
+    # inf32 dies with this call while the kernel may still run: safe, the
+    # caching allocator reuses a block only in stream order
+    inf32 = inf.to(torch.int32).contiguous()
+    ok = torch.empty((lanes,), dtype=torch.int32, device=x.device)
+    lib = _build.lib()
+    _build.count_launch("schnorr_check")
+    _build.check(lib.secp_schnorr_check(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), inf32.data_ptr(),
+        rx.data_ptr(), ok.data_ptr(), lanes, _build.stream_ptr()),
+        "schnorr_check")
+    return ok != 0

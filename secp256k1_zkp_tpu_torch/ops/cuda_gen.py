@@ -1,11 +1,11 @@
 """Fixed-base multiplication k*G from signed-w7 comb digit rows.
 
 Counterpart of the JAX package's ``ops/pallas_gen.py`` (``_comb_tables_np``,
-``_gen_kernel``, ``fixedbase_digits_tpu``): digit position v (0..36) runs
-against its own 64-entry table of d * 2^(7v) * G, so k*G costs 37 complete
-mixed adds and no doublings.  The kernel selects each entry with a full
-table scan (the same code serves signing, where k is secret); the plain
-version indexes the table directly.
+``gen_digits``, ``_gen_kernel``, ``fixedbase_digits_tpu``): digit position
+v (0..36) runs against its own 64-entry table of d * 2^(7v) * G, so k*G
+costs 37 complete mixed adds and no doublings.  The kernel selects each
+entry with a full table scan (the same code serves signing, where k is
+secret); the plain version indexes the table directly.
 
 The blinded tail of the reference kernel (one more mixed add of -b*G) is
 not ported yet: it belongs to the signing slice, the verify path runs
@@ -22,7 +22,7 @@ from . import _build
 from ..utils import hostcurve as hc
 from .cuda_field import I64, LIMBS, MASK16, canon_p, limbs16
 from .cuda_group import FE, fe_neg, fe_select, fe_weak, jp_add_aff, jp_inf
-from .cuda_scalar import NW7
+from .cuda_scalar import NW7, recode_w7_256
 
 COMB_ENTRIES = 64   # signed-w7 magnitudes 1..64
 
@@ -65,6 +65,14 @@ def _comb_words(device: str) -> torch.Tensor:
 @lru_cache(maxsize=8)
 def _comb_limbs(device: str) -> torch.Tensor:
     return comb_tables().to(device)
+
+
+def gen_digits(k: torch.Tensor) -> torch.Tensor:
+    """Canonical scalar ``[16, B]`` int32 -> its ``[37, B]`` int32 signed-w7
+    comb rows (MSB-first), the operand of :func:`fixedbase_digits`.
+    Elementwise glue in plain PyTorch on both devices, as it is XLA glue
+    in the JAX package (``pallas_gen.gen_digits``)."""
+    return recode_w7_256(k.to(I64)).to(torch.int32)
 
 
 def fixedbase_digits_ref(gdigs: torch.Tensor):

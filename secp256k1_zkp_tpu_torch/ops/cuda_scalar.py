@@ -1,13 +1,14 @@
-"""GF(n) (group-order) scalar arithmetic of the kernel library and the fused
-ECDSA-verify *prep* kernel.
+"""GF(n) (group-order) scalar arithmetic of the kernel library, the fused
+ECDSA-verify *prep* kernel and the GLV-split kernel.
 
 Counterpart of the JAX package's ``ops/pallas_scalar.py``: ``mul_limbs_n``,
 ``canon_n``, ``mul_shift384_round``, ``glv_split``, ``recode_signed`` as
 plain PyTorch on limb-major ``[K, B]`` int64 rows, and ``ecdsa_prep`` —
 s^-1 (safegcd), u1 = m/s, u2 = r/s, the GLV lambda split of u2 and the
-signed digit rows the two point kernels consume.  Every output of the
-prep is a canonical quantity (digits, flags), so kernel, plain version
-and the JAX helpers agree bit for bit.
+signed digit rows the two point kernels consume — and ``glv_only``, the
+split and recoding alone (``glv_split_tpu``).  Every output of both is a
+canonical quantity (digits, flags), so kernel, plain version and the JAX
+helpers agree bit for bit.
 """
 
 from __future__ import annotations
@@ -230,3 +231,39 @@ def ecdsa_prep(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor):
         gdigs.data_ptr(), flags.data_ptr(), lanes, _build.stream_ptr()),
         "ecdsa_prep")
     return digs, gdigs, flags
+
+
+# ---------------------------------------------------------------------------
+# GLV split alone (the Schnorr challenge)
+# ---------------------------------------------------------------------------
+
+
+def glv_only_ref(k: torch.Tensor):
+    """Plain version of :func:`glv_only` (any device)."""
+    a1, neg1, a2, neg2 = glv_split(k.to(I64))
+    digs = torch.cat([recode_w5(a1), recode_w5(a2)], 0)
+    flags = torch.stack([neg1, neg2], 0)
+    return digs.to(torch.int32), flags.to(torch.int32)
+
+
+def glv_only(k: torch.Tensor):
+    """GLV lambda split of a canonical ``[16, B]`` int32 scalar.
+
+    Returns (digits ``[52, B]``, flags ``[2, B]``), int32: rows 0-25 = a1,
+    26-51 = a2 (signed-w5, MSB-first, ``mag | sign<<8``), flags = (neg1,
+    neg2) with k = (-1)^neg1 * a1 + lambda * (-1)^neg2 * a2 (mod n) — the
+    digit streams :func:`ecdsa_prep` makes for u2, here for any scalar.
+
+    CUDA tensors go through the hand-written kernel
+    (``csrc/glv_only.cu``); CPU tensors through the plain version."""
+    if not k.is_cuda:
+        return glv_only_ref(k)
+    lanes = _build.check_rows(k, LIMBS, "glv_only k")
+    digs = torch.empty((2 * NW5, lanes), dtype=torch.int32, device=k.device)
+    flags = torch.empty((2, lanes), dtype=torch.int32, device=k.device)
+    lib = _build.lib()
+    _build.count_launch("glv_only")
+    _build.check(lib.secp_glv_only(
+        k.data_ptr(), digs.data_ptr(), flags.data_ptr(), lanes,
+        _build.stream_ptr()), "glv_only")
+    return digs, flags

@@ -1,0 +1,201 @@
+"""Batched SHA-256 and BIP-340 tagged hashes on PyTorch tensors.
+
+Counterpart of the JAX package's ``ops/sha256.py``, cut to what the
+Schnorr-verify slice uses: ``compress``, padding, ``sha256_words``,
+``sha256_bytes``, ``tagged_hash_words``, ``tagged_hash_bytes``, the word
+/ byte codecs and the ``set_compress`` hook.  ``hmac_sha256``,
+``RFC6979`` and ``Sha256Stream`` wait for the signing slice.
+
+Data layout as in the JAX package: 32-bit big-endian words, batch first,
+``[..., W]``.  Words are held in ``int64`` and masked with ``0xFFFFFFFF``
+after every add and inside every rotate (the uint32 wrap-around of the
+reference).  All message lengths are static, so every hash is a fixed
+number of compressions.
+
+Route: on CUDA tensors all blocks of a hash go through the hand-written
+SHA-256 kernel in one launch (``ops/cuda_sha256.py``); on CPU tensors
+through :func:`compress_plain`, the plain version of that kernel.  A
+``set_compress`` override wins over both.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ..utils import sha256_host
+from . import cuda_sha256
+
+M32 = 0xFFFFFFFF
+I64 = torch.int64
+_K = tuple(sha256_host.K)
+_INIT = tuple(sha256_host.INIT)
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def compress_plain(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 compression in plain PyTorch: state ``[..., 8]``, block
+    ``[..., 16]`` int64 words in [0, 2^32) -> ``[..., 8]``
+    (cf. sha256_transform, src/hash_impl.h:51-138)."""
+    w = list(block.unbind(-1))
+    for t in range(16, 64):
+        x, y = w[t - 15], w[t - 2]
+        s0 = _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+        s1 = _rotr(y, 17) ^ _rotr(y, 19) ^ (y >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    a, b, c, d, e, f, g, h = state.unbind(-1)
+    for t in range(64):
+        S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + S1 + ch + _K[t] + w[t]) & M32
+        S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t2 = (S0 + maj) & M32
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & M32, c, b, a, \
+            (t1 + t2) & M32
+    return (state + torch.stack([a, b, c, d, e, f, g, h], -1)) & M32
+
+
+_COMPRESS_OVERRIDE = None
+
+
+def set_compress(fn):
+    """Install a custom compression function (or None to reset); returns
+    the previous one.
+
+    The counterpart of the reference's per-context pluggable SHA256
+    compression (include/secp256k1.h:420-446): every hash here routes
+    through :func:`compress`, so an override redirects all of them.
+    ``fn(state, block)`` takes int64 words ``[..., 8]``, ``[..., 16]``
+    and returns ``[..., 8]``.  Process-global, like the JAX package's."""
+    global _COMPRESS_OVERRIDE
+    prev = _COMPRESS_OVERRIDE
+    _COMPRESS_OVERRIDE = fn
+    return prev
+
+
+def _blocks_on_card(state: torch.Tensor, words: torch.Tensor):
+    """All ``words.shape[-1] // 16`` blocks in one kernel launch."""
+    batch = state.shape[:-1]
+    st = cuda_sha256.words_to_rows(state.reshape(-1, 8))
+    bl = cuda_sha256.words_to_rows(words.reshape(-1, words.shape[-1]))
+    out = cuda_sha256.sha256_blocks(st, bl)
+    return cuda_sha256.rows_to_words(out).reshape(*batch, 8)
+
+
+def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 compression: state ``[..., 8]``, block ``[..., 16]``
+    int64 words -> ``[..., 8]``.  A :func:`set_compress` override wins;
+    otherwise CUDA tensors go through the kernel, CPU tensors through
+    :func:`compress_plain`."""
+    if _COMPRESS_OVERRIDE is not None:
+        return _COMPRESS_OVERRIDE(state, block)
+    if state.is_cuda:
+        return _blocks_on_card(state, block)
+    return compress_plain(state, block)
+
+
+def _compress_blocks(state: torch.Tensor, words: torch.Tensor):
+    """Absorb the padded block words ``[..., 16k]`` into ``state``: one
+    kernel launch on the card for all k blocks, else block by block."""
+    if _COMPRESS_OVERRIDE is None and state.is_cuda:
+        return _blocks_on_card(state, words)
+    for i in range(words.shape[-1] // 16):
+        state = compress(state, words[..., 16 * i:16 * (i + 1)])
+    return state
+
+
+def _start(init_state, batch, device):
+    src = _INIT if init_state is None else init_state
+    st = torch.as_tensor(src, dtype=I64, device=device)
+    return st.expand(*batch, 8).contiguous()
+
+
+def _pad_words(words: torch.Tensor, msg_bytes: int,
+               consumed_bytes: int = 0) -> torch.Tensor:
+    """SHA-256 padding of a whole-word message of static length:
+    ``[..., W]`` (W * 4 == msg_bytes) -> ``[..., 16k]`` block words.
+    ``consumed_bytes``: bytes already absorbed (64 for a midstate)."""
+    W = words.shape[-1]
+    assert W * 4 == msg_bytes
+    bitlen = (msg_bytes + consumed_bytes) * 8
+    npad = (-(W + 1 + 2)) % 16 + 1 + 2
+    pad = torch.zeros((*words.shape[:-1], npad), dtype=I64,
+                      device=words.device)
+    pad[..., 0] = 0x80000000
+    pad[..., -2] = (bitlen >> 32) & M32
+    pad[..., -1] = bitlen & M32
+    return torch.cat([words.to(I64), pad], -1)
+
+
+def _pad_bytes_to_blocks(msg: torch.Tensor,
+                         consumed_bytes: int = 0) -> torch.Tensor:
+    """``[..., L]`` uint8 (static L) -> padded big-endian block words
+    ``[..., 16k]`` int64: message || 0x80 || zeros || 8-byte bit length."""
+    L = msg.shape[-1]
+    batch = msg.shape[:-1]
+    bitlen = (L + consumed_bytes) * 8
+    zpad = (64 - (L + 1 + 8) % 64) % 64
+    tail = [0x80] + [0] * (zpad + 8)
+    tail[-8:] = list(bitlen.to_bytes(8, "big"))
+    tail_t = torch.tensor(tail, dtype=I64, device=msg.device)
+    full = torch.cat([msg.to(I64), tail_t.expand(*batch, len(tail))], -1)
+    assert full.shape[-1] % 64 == 0
+    b4 = full.reshape(*batch, -1, 4)
+    return (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) \
+        | b4[..., 3]
+
+
+def sha256_words(words: torch.Tensor, init_state=None,
+                 consumed_bytes: int = 0) -> torch.Tensor:
+    """SHA-256 of a whole-word message ``[..., W]`` -> digest words
+    ``[..., 8]``; ``init_state`` / ``consumed_bytes`` continue a
+    midstate."""
+    msg = _pad_words(words, words.shape[-1] * 4, consumed_bytes)
+    state = _start(init_state, words.shape[:-1], words.device)
+    return _compress_blocks(state, msg)
+
+
+def sha256_bytes(msg: torch.Tensor, init_state=None,
+                 consumed_bytes: int = 0) -> torch.Tensor:
+    """SHA-256 over a byte tensor ``[..., L]`` (static L) -> ``[..., 8]``
+    digest words."""
+    words = _pad_bytes_to_blocks(msg, consumed_bytes)
+    state = _start(init_state, msg.shape[:-1], msg.device)
+    return _compress_blocks(state, words)
+
+
+@lru_cache(maxsize=32)
+def tag_midstate(tag: str) -> tuple[int, ...]:
+    """State after SHA256(tag) || SHA256(tag), computed on the host
+    (cf. hash_impl.h:196)."""
+    return tuple(sha256_host.tagged_midstate(tag))
+
+
+def tagged_hash_words(tag: str, words: torch.Tensor) -> torch.Tensor:
+    """SHA256(SHA256(tag) || SHA256(tag) || msg) of a whole-word message."""
+    return sha256_words(words, init_state=tag_midstate(tag),
+                        consumed_bytes=64)
+
+
+def tagged_hash_bytes(tag: str, msg: torch.Tensor) -> torch.Tensor:
+    """Tagged hash of a byte message ``[..., L]`` -> ``[..., 8]`` words."""
+    return sha256_bytes(msg, init_state=tag_midstate(tag), consumed_bytes=64)
+
+
+def bytes32_to_words(b: torch.Tensor) -> torch.Tensor:
+    """``[..., 32]`` uint8 -> ``[..., 8]`` big-endian int64 words."""
+    b4 = b.to(I64).reshape(*b.shape[:-1], 8, 4)
+    return (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) \
+        | b4[..., 3]
+
+
+def words_to_bytes32(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 8]`` words -> ``[..., 32]`` uint8."""
+    out = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
+                       (w >> 8) & 0xFF, w & 0xFF], -1)
+    return out.reshape(*w.shape[:-1], 32).to(torch.uint8)

@@ -184,11 +184,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import secp256k1_zkp_tpu_torch as t\n"
         "from secp256k1_zkp_tpu_torch import context, config\n"
-        "from secp256k1_zkp_tpu_torch.modules import ecdsa\n"
+        "from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig\n"
         "from secp256k1_zkp_tpu_torch.ops import (_build, cuda_divsteps,\n"
-        "    cuda_field, cuda_gen, cuda_group, cuda_scalar, field, group,\n"
-        "    limb, scalar)\n"
-        "from secp256k1_zkp_tpu_torch.utils import convert, hostcurve\n"
+        "    cuda_field, cuda_gen, cuda_group, cuda_scalar, cuda_sha256,\n"
+        "    field, group, limb, scalar, sha256)\n"
+        "from secp256k1_zkp_tpu_torch.utils import (convert, hostcurve,\n"
+        "    sha256_host)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'secp256k1_zkp_tpu'\n"
         "       or m.startswith('secp256k1_zkp_tpu.') or m == 'triton']\n"
