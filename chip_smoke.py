@@ -4,12 +4,17 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 Drives the port's main paths through the entry points a user calls —
-``context.selftest``, batched ECDSA verify (``modules.ecdsa.verify``) and
-batched BIP-340 Schnorr verify (``modules.schnorrsig.verify``), each at
-16,384 and 262,144 signatures — builds the eight hand-written kernels
-from the sources in this checkout, holds each against its plain PyTorch
-version on the card at every shape those paths give it (exact equality:
-the values are integers, the tolerance is 0), times them, and prints one
+``context.selftest``, batched ECDSA verify (``modules.ecdsa.verify``),
+batched BIP-340 Schnorr verify (``modules.schnorrsig.verify``), batched
+ECDSA sign (``modules.ecdsa.sign``) and batched BIP-340 sign
+(``modules.schnorrsig.sign``), blinded by a ``context.Context`` and not,
+each at 16,384 and 262,144 lanes — builds the eleven hand-written kernels
+from the sources in this checkout, holds each (and the blinded variant of
+the comb kernel) against its plain PyTorch version on the card at every
+shape those paths give it (exact equality: the values are integers, the
+tolerance is 0), checks every signature byte against one made on the host
+with Python integers, ``hashlib`` and ``hmac``, feeds the port's own
+signatures to its verify, times the kernels and the calls, and prints one
 JSON line per phase.  Any failed phase raises: nothing is caught.
 Without a CUDA device the script exits non-zero and prints no result.
 
@@ -28,15 +33,22 @@ SHA-256 is counted in 32-bit logic and add operations, one operation each
 and ``bound_ms`` are read at the longest of those.  The ``chain64_*`` keys
 are a micro-benchmark of the field multiply at the verify batch sizes
 (64 multiplies a lane), a shape the main path does not give it.
-``sha256`` runs twice in ``context.selftest`` (one block each) and once
-per Schnorr verify (the 96-byte challenge after the tag midstate: two
-blocks in one launch); its ``ms`` is read at the verify shape.
+``sha256`` runs twice in ``context.selftest`` (one block each), once per
+Schnorr verify (the 96-byte challenge after the tag midstate: two blocks
+in one launch), 40 times per ECDSA sign (RFC6979: ten HMACs of four
+launches) and three times per Schnorr sign; it is held against its plain
+version on the operands of every one of those launches, and its ``ms`` is
+read at the verify shape.  The blinded comb is also held on the lanes
+k = n - b, 0, 1 and n - 1, the special cases of its last complete add.  ``fixedbase_blinded`` is ``csrc/fixedbase.cu``'s blinded
+entry point (one more mixed add of -b*G), counted apart from the
+unblinded one so that each shows its launches.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import hmac
 import json
 import re
 import subprocess
@@ -99,6 +111,14 @@ OPS = {
     # X == r*Z^2, the inverse of Z, Y * (Z^-1)^3
     "schnorr_check": MODINV + 2 * SQR + 3 * MUL,
     "sha256": SHA_BLOCK,          # per block
+    # the inverse of Z, Z^-2, Z^-3, x and y; the inverse of k, r*d, k^-1*u
+    "ecdsa_finish": 2 * MODINV + SQR + 3 * MUL + 2 * SC_MUL,
+    # the inverse of Z, Z^-2, Z^-3, x and y
+    "affine_xy": MODINV + SQR + 3 * MUL,
+    # e*d, and the negation and the sum (two 8-word carry chains)
+    "muladd_n": SC_MUL + 2 * 8,
+    # the 37 rows and the blinding point, one mixed add each
+    "fixedbase_blinded": 38 * ADD_AFF,
 }
 # 32-bit elements read + written per lane
 WORDS = {
@@ -110,6 +130,10 @@ WORDS = {
     "glv_only": 16 + 52 + 2,
     "schnorr_check": 4 * 16 + 1 + 1,
     "sha256": 8 + 8,              # state in and out; + 16 a block
+    "ecdsa_finish": 6 * 16 + 2 * 16 + 2,
+    "affine_xy": 3 * 16 + 2 * 16,
+    "muladd_n": 3 * 16 + 1 + 16,
+    "fixedbase_blinded": 37 + 3 * 16,   # -b*G: 16 words for all lanes
 }
 REPLACES = {
     "mulmod_chain": "secp256k1_zkp_tpu/ops/pallas_field.py:183",
@@ -121,6 +145,11 @@ REPLACES = {
     "schnorr_check": "secp256k1_zkp_tpu/ops/pallas_field.py:366",
     # no TPU kernel: XLA glue there (the compression it replaces)
     "sha256": "secp256k1_zkp_tpu/ops/sha256.py:54 (XLA, no Pallas kernel)",
+    "ecdsa_finish": "secp256k1_zkp_tpu/ops/pallas_gen.py:294",
+    "affine_xy": "secp256k1_zkp_tpu/ops/pallas_gen.py:384",
+    "muladd_n": "secp256k1_zkp_tpu/ops/pallas_gen.py:438",
+    "fixedbase_blinded": "secp256k1_zkp_tpu/ops/pallas_gen.py:114 "
+                         "(blinded, tail at :162-165)",
 }
 SOURCES = {
     "mulmod_chain": "secp256k1_zkp_tpu_torch/csrc/mulmod_chain.cu",
@@ -131,15 +160,34 @@ SOURCES = {
     "glv_only": "secp256k1_zkp_tpu_torch/csrc/glv_only.cu",
     "schnorr_check": "secp256k1_zkp_tpu_torch/csrc/schnorr_check.cu",
     "sha256": "secp256k1_zkp_tpu_torch/csrc/sha256.cu",
+    "ecdsa_finish": "secp256k1_zkp_tpu_torch/csrc/ecdsa_finish.cu",
+    "affine_xy": "secp256k1_zkp_tpu_torch/csrc/affine_xy.cu",
+    "muladd_n": "secp256k1_zkp_tpu_torch/csrc/muladd_n.cu",
+    "fixedbase_blinded": "secp256k1_zkp_tpu_torch/csrc/fixedbase.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_digits", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_digits",
                    "ecmult_glv", "schnorr_check")
+SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded")
+# RFC6979 with two candidates: four HMACs to seed the DRBG and three per
+# candidate, each HMAC two one-block compressions of the key block and two
+# hashes (inner, outer) of one launch each
+RFC6979_SHA256 = (4 + 3 * 2) * 4
 # the kernels each path must launch, and how often a call
 PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          "ecdsa": {k: 1 for k in ECDSA_KERNELS},
-         "schnorr": {k: 1 for k in SCHNORR_KERNELS}}
+         "schnorr": {k: 1 for k in SCHNORR_KERNELS},
+         "ecdsa_sign": {"sha256": RFC6979_SHA256, "fixedbase_digits": 1,
+                        "ecdsa_finish": 1},
+         "ecdsa_sign_blinded": {"sha256": RFC6979_SHA256,
+                                "fixedbase_blinded": 1, "ecdsa_finish": 1},
+         # the keypair's d*G and the nonce's k*G; tagged hashes aux, nonce
+         # and challenge
+         "schnorr_sign": {"fixedbase_digits": 2, "affine_xy": 2,
+                          "sha256": 3, "muladd_n": 1},
+         "schnorr_sign_blinded": {"fixedbase_blinded": 2, "affine_xy": 2,
+                                  "sha256": 3, "muladd_n": 1}}
 
 
 def emit(phase: str, **kw) -> None:
@@ -434,6 +482,190 @@ def make_schnorr_batch(base, lanes: int):
             torch.from_numpy(pxs), expect)
 
 
+# --- host-made signatures: what the sign paths must return ------------------
+
+# the BIP-340 sign vectors (index, seckey, pubkey, aux, msg, sig): data from
+# the BIP, as the reference embeds them in modules/schnorrsig/tests_impl.h
+BIP340_SIGN_VECTORS = [
+    (0, "0000000000000000000000000000000000000000000000000000000000000003",
+     "F9308A019258C31049344F85F89D5229B531C845836F99B08601F113BCE036F9",
+     "0000000000000000000000000000000000000000000000000000000000000000",
+     "0000000000000000000000000000000000000000000000000000000000000000",
+     "E907831F80848D1069A5371B402410364BDF1C5F8307B0084C55F1CE2DCA8215"
+     "25F66A4A85EA8B71E482A74F382D2CE5EBEEE8FDB2172F477DF4900D310536C0"),
+    (1, "B7E151628AED2A6ABF7158809CF4F3C762E7160F38B4DA56A784D9045190CFEF",
+     "DFF1D77F2A671C5F36183726DB2341BE58FEAE1DA2DECED843240F7B502BA659",
+     "0000000000000000000000000000000000000000000000000000000000000001",
+     "243F6A8885A308D313198A2E03707344A4093822299F31D0082EFA98EC4E6C89",
+     "6896BD60EEAE296DB48A229FF71DFE071BDE413E6D43F917DC8DCF8C78DE3341"
+     "8906D11AC976ABCCB20B091292BFF4EA897EFCB639EA871CFA95F6DE339E4B0A"),
+    (2, "C90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74020BBEA63B14E5C9",
+     "DD308AFEC5777E13121FA72B9CC1B7CC0139715309B086C960E18FD969774EB8",
+     "C87AA53824B4D7AE2EB035A2B5BBBCCC080E76CDC6D1692C4B0B62D798E6D906",
+     "7E2D58D8B3BCDF1ABADEC7829054F90DDA9805AAB56C77333024B9D0A508B75C",
+     "5831AAEED7B44BB74E5EAB94BA9D4294C49BCF2A60728D8B4C200F50DD313C1B"
+     "AB745879A5AD954A72C45A91C3A51D3C7ADEA98D82F8481E0E1E03674A6F3FB7"),
+    (3, "0B432B2677937381AEF05BB02A66ECD012773062CF3FA2549E44F58ED2401710",
+     "25D1DFF95105F5253C4022F628A996AD3A0D95FBF21D468A1B33F8C160D8F517",
+     "FFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFF",
+     "FFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFF",
+     "7EB0509757E246F19449885651611CB965ECC1A187DD51B64FDA1EDC9637D5EC"
+     "97582B9CB13DB3933705B32BA982AF5AF25FD78881EBB32771FC5922EFC66EA3"),
+]
+# secret keys the sign paths must refuse (ok false, zero signature):
+# 0, n and a value above n
+BAD_KEYS = (0, hc.N, hc.N + 5)
+
+
+def _hmac(key: bytes, msg: bytes) -> bytes:
+    return hmac.new(key, msg, hashlib.sha256).digest()
+
+
+def _rfc6979_k(sec32: bytes, msg32: bytes) -> int:
+    """The first of two RFC6979 candidates in [1, n-1] (the reference's
+    nonce_function_rfc6979 with no extra data), 0 if neither is."""
+    v, k = b"\x01" * 32, b"\x00" * 32
+    k = _hmac(k, v + b"\x00" + sec32 + msg32)
+    v = _hmac(k, v)
+    k = _hmac(k, v + b"\x01" + sec32 + msg32)
+    v = _hmac(k, v)
+    for _ in range(2):
+        v = _hmac(k, v)
+        cand = int.from_bytes(v, "big")
+        if 0 < cand < hc.N:
+            return cand
+        k = _hmac(k, v + b"\x00")
+        v = _hmac(k, v)
+    return 0
+
+
+def _mul_g_affine(ks, comb):
+    """k*G for a list of scalars in [1, n-1], affine, with spot checks of
+    the table-driven multiples against plain double-and-add."""
+    pts = hc.batch_affine([_mul_g(k, comb) for k in ks])
+    for i in range(0, len(ks), max(len(ks) // 4, 1)):
+        assert pts[i] == hc.mul(ks[i])
+    return pts
+
+
+def make_sign_distinct(distinct: int, seed: int):
+    """``distinct`` ECDSA keys and messages from ``seed`` and what signing
+    them must give, with Python ints and ``hmac``: (secs, msgs, sigs,
+    recids, key x limbs, key y limbs)."""
+    comb = _comb_ints()
+    rng = np.random.default_rng(seed + 2)
+    secs = [int.from_bytes(rng.bytes(32), "big") % hc.N or 1
+            for _ in range(distinct)]
+    msgs = rng.integers(0, 256, (distinct, 32), dtype=np.uint8)
+    ks = [_rfc6979_k(_i32(d), bytes(m)) for d, m in zip(secs, msgs)]
+    Ra = _mul_g_affine(ks, comb)
+    Pa = _mul_g_affine(secs, comb)
+    sigs = np.zeros((distinct, 64), np.uint8)
+    recids = np.zeros(distinct, np.int64)
+    pkx = np.zeros((distinct, 16), np.int64)
+    pky = np.zeros((distinct, 16), np.int64)
+    for i in range(distinct):
+        m = int.from_bytes(bytes(msgs[i]), "big") % hc.N
+        r = Ra[i][0] % hc.N
+        s = pow(ks[i], -1, hc.N) * (m + r * secs[i]) % hc.N
+        recid = (2 if Ra[i][0] >= hc.N else 0) | (Ra[i][1] & 1)
+        if s > hc.N // 2:
+            s, recid = hc.N - s, recid ^ 1
+        assert r and s
+        sigs[i] = np.frombuffer(_i32(r) + _i32(s), np.uint8)
+        recids[i] = recid
+        pkx[i], pky[i] = _limbs(Pa[i][0]), _limbs(Pa[i][1])
+    sec_b = np.array([np.frombuffer(_i32(d), np.uint8) for d in secs])
+    return sec_b, msgs, sigs, recids, pkx, pky
+
+
+def _tile(a, lanes):
+    return np.tile(a, (-(-lanes // len(a)),) + (1,) * (a.ndim - 1))[:lanes] \
+        .copy()
+
+
+def make_sign_batch(base, lanes: int):
+    """``lanes`` ECDSA sign jobs tiled from ``base``, the ``BAD_KEYS`` on
+    lanes 0-2.  Returns (msg32, sec32 on the CPU, expected sig64, recid
+    and ok as numpy, the keys as a GE for verify)."""
+    secs, msgs, sigs, recids, pkx, pky = (_tile(a, lanes) for a in base)
+    ok = np.ones(lanes, bool)
+    for lane, d in enumerate(BAD_KEYS):
+        secs[lane] = np.frombuffer(_i32(d), np.uint8)
+        sigs[lane] = 0
+        ok[lane] = False
+    pub = GE(LB(torch.from_numpy(pkx), MASK16),
+             LB(torch.from_numpy(pky), MASK16),
+             torch.zeros(lanes, dtype=torch.bool))
+    return (torch.from_numpy(msgs), torch.from_numpy(secs), sigs, recids,
+            ok, pub)
+
+
+def _schnorr_sig(d: int, P, k: int, R, aux: bytes, msg: bytes) -> bytes:
+    """BIP-340 signature from the keypair (d, P = d*G) and the nonce
+    (k, R = k*G) the default nonce function gave."""
+    d = d if P[1] % 2 == 0 else hc.N - d
+    k = k if R[1] % 2 == 0 else hc.N - k
+    s = (k + _challenge(_i32(R[0]), _i32(P[0]), msg) * d) % hc.N
+    return _i32(R[0]) + _i32(s)
+
+
+def _schnorr_nonce(d: int, P, aux: bytes, msg: bytes) -> int:
+    d = d if P[1] % 2 == 0 else hc.N - d
+    t = d ^ int.from_bytes(_tagged("BIP0340/aux", aux), "big")
+    return int.from_bytes(_tagged("BIP0340/nonce",
+                                  _i32(t) + _i32(P[0]) + msg), "big") % hc.N
+
+
+def make_ssign_distinct(distinct: int, seed: int):
+    """``distinct`` BIP-340 keys, messages and aux data from ``seed`` and
+    the signatures they must give: (secs, msgs, auxs, sigs, x-only keys)."""
+    comb = _comb_ints()
+    rng = np.random.default_rng(seed + 3)
+    secs = [int.from_bytes(rng.bytes(32), "big") % hc.N or 1
+            for _ in range(distinct)]
+    msgs = rng.integers(0, 256, (distinct, 32), dtype=np.uint8)
+    auxs = rng.integers(0, 256, (distinct, 32), dtype=np.uint8)
+    Pa = _mul_g_affine(secs, comb)
+    ks = [_schnorr_nonce(d, P, bytes(a), bytes(m))
+          for d, P, a, m in zip(secs, Pa, auxs, msgs)]
+    Ra = _mul_g_affine(ks, comb)
+    sigs = np.array([np.frombuffer(_schnorr_sig(
+        secs[i], Pa[i], ks[i], Ra[i], bytes(auxs[i]), bytes(msgs[i])),
+        np.uint8) for i in range(distinct)])
+    pxs = np.array([np.frombuffer(_i32(P[0]), np.uint8) for P in Pa])
+    sec_b = np.array([np.frombuffer(_i32(d), np.uint8) for d in secs])
+    return sec_b, msgs, auxs, sigs, pxs
+
+
+def make_ssign_batch(base, lanes: int):
+    """``lanes`` BIP-340 sign jobs tiled from ``base``, the ``BAD_KEYS`` on
+    lanes 0-2 and the four BIP-340 sign vectors on lanes 3-6 (their
+    signatures made by the host code above too, as a check of it).
+    Returns (msg32, sec32, aux32 on the CPU, expected sig64 and ok as
+    numpy, x-only keys on the CPU)."""
+    secs, msgs, auxs, sigs, pxs = (_tile(a, lanes) for a in base)
+    ok = np.ones(lanes, bool)
+    for lane, d in enumerate(BAD_KEYS):
+        secs[lane] = np.frombuffer(_i32(d), np.uint8)
+        sigs[lane] = 0
+        ok[lane] = False
+    for j, (_, sk, pk, aux, msg, sig) in enumerate(BIP340_SIGN_VECTORS):
+        d = int(sk, 16)
+        P, aux_b, msg_b = hc.mul(d), bytes.fromhex(aux), bytes.fromhex(msg)
+        k = _schnorr_nonce(d, P, aux_b, msg_b)
+        assert _schnorr_sig(d, P, k, hc.mul(k), aux_b, msg_b) \
+            == bytes.fromhex(sig) and _i32(P[0]) == bytes.fromhex(pk)
+        lane = 3 + j
+        secs[lane] = np.frombuffer(bytes.fromhex(sk), np.uint8)
+        auxs[lane] = np.frombuffer(aux_b, np.uint8)
+        msgs[lane] = np.frombuffer(msg_b, np.uint8)
+        sigs[lane] = np.frombuffer(bytes.fromhex(sig), np.uint8)
+        pxs[lane] = np.frombuffer(bytes.fromhex(pk), np.uint8)
+    return (torch.from_numpy(msgs), torch.from_numpy(secs),
+            torch.from_numpy(auxs), sigs, ok, torch.from_numpy(pxs))
+
+
 # --- timing -----------------------------------------------------------------
 
 
@@ -501,6 +733,64 @@ def schnorr_inputs(msgs, sigs, pxs, dev):
     return t
 
 
+def sign_inputs(msgs, secs, blind, dev):
+    """The tensors each ECDSA-sign kernel sees on the main path: the steps
+    of ``ecdsa.sign`` one by one, and the blinded comb's operands."""
+    msgs, secs = msgs.to(dev), secs.to(dev)
+    rows = ecdsa.kernel_rows
+    d, _ = S.from_bytes_be(secs)
+    m, _ = S.from_bytes_be(msgs)
+    k, _ = ecdsa._pick_nonce(ecdsa.rfc6979_nonce(msgs, secs))
+    t = dict(k=rows(k), m=rows(m), d=rows(d))
+    t["gjac"] = cuda_gen.ecmult_gen(t["k"])
+    # the blinded comb also on the lanes of its complete add's special
+    # cases: k = n - b (k' = 0, the accumulator still at infinity when
+    # -b*G is added), k = 0 (k' = b, the last add is P + (-P)), k = 1 and
+    # k = n - 1
+    kedge = t["k"].clone()
+    for lane, v in enumerate((hc.N - blind.b, 0, 1, hc.N - 1)):
+        kedge[:, lane] = torch.tensor(_limbs(v), dtype=torch.int32)
+    t["bdigs"], t["gb"] = cuda_gen.blinded_digits(kedge, blind)
+    return t
+
+
+def sha_operands(fn):
+    """The (state, blocks) rows of every SHA-256 kernel launch that
+    ``fn()`` makes, caught at the kernel's wrapper (the kernel still
+    runs), as tensor sets for :func:`compare`."""
+    seen, real = [], cuda_sha256.sha256_blocks
+
+    def spy(state, blocks):
+        seen.append(dict(sha_state=state.clone(), sha_blocks=blocks.clone()))
+        return real(state, blocks)
+
+    cuda_sha256.sha256_blocks = spy
+    try:
+        fn()
+    finally:
+        cuda_sha256.sha256_blocks = real
+    return seen
+
+
+def ssign_inputs(msgs, secs, auxs, dev):
+    """The tensors each Schnorr-sign kernel sees on the main path: the
+    steps of ``schnorrsig.sign`` one by one (R = k*G for ``affine_xy``)."""
+    msgs, secs, auxs = msgs.to(dev), secs.to(dev), auxs.to(dev)
+    rows = ecdsa.kernel_rows
+    d_even, px32, _, _ = schnorrsig.keypair_xonly(secs, device=dev)
+    aux_hash = H.words_to_bytes32(H.tagged_hash_bytes("BIP0340/aux", auxs))
+    nonce = torch.cat([S.to_bytes_be(d_even) ^ aux_hash, px32, msgs], -1)
+    k, _ = S.from_bytes_be(H.words_to_bytes32(
+        H.tagged_hash_bytes("BIP0340/nonce", nonce)))
+    t = dict(k=rows(k), d=rows(d_even))
+    t["R"] = cuda_gen.ecmult_gen(t["k"])
+    xa, ya = cuda_gen.affine_xy(*t["R"])
+    e = schnorrsig.challenge(F.to_bytes_be(ecdsa.from_rows(xa)), px32, msgs)
+    t["e"] = rows(S.normalize(e))
+    t["neg"] = (ya[0] & 1) == 1
+    return t
+
+
 def run_pair(name, t, use_ref: bool):
     """One kernel (or its plain version) on the tensors ``t``; returns a
     tuple of result tensors."""
@@ -528,6 +818,20 @@ def run_pair(name, t, use_ref: bool):
     if name == "glv_only":
         f = cuda_scalar.glv_only_ref if use_ref else cuda_scalar.glv_only
         return f(t["e"])
+    if name == "ecdsa_finish":
+        f = (cuda_gen.ecdsa_sign_finish_ref if use_ref
+             else cuda_gen.ecdsa_sign_finish)
+        return f(*t["gjac"], t["k"], t["m"], t["d"])
+    if name == "affine_xy":
+        f = cuda_gen.affine_xy_ref if use_ref else cuda_gen.affine_xy
+        return f(*t["R"])
+    if name == "muladd_n":
+        f = cuda_gen.muladd_n_ref if use_ref else cuda_gen.muladd_n
+        return (f(t["k"], t["e"], t["d"], t["neg"]),)
+    if name == "fixedbase_blinded":
+        f = (cuda_gen.fixedbase_digits_ref if use_ref
+             else cuda_gen.fixedbase_digits)
+        return f(t["bdigs"], t["gb"])
     f = cuda_field.schnorr_check_ref if use_ref else cuda_field.schnorr_check
     return (f(*t["R"], t["rx"]),)
 
@@ -600,8 +904,16 @@ def main() -> int:
     sbase = make_schnorr_distinct(distinct, args.seed)
     batches = {n: make_batch(base, n) for n in (*sizes, ragged)}
     sbatches = {n: make_schnorr_batch(sbase, n) for n in (*sizes, ragged)}
+    gbase = make_sign_distinct(distinct, args.seed)
+    gsbase = make_ssign_distinct(distinct, args.seed)
+    gbatches = {n: make_sign_batch(gbase, n) for n in (*sizes, ragged)}
+    gsbatches = {n: make_ssign_batch(gsbase, n) for n in (*sizes, ragged)}
     emit("data", seconds=round(time.time() - t0, 2),
          lanes=sorted(batches), distinct=distinct)
+    # the blinding of the sign paths, from the seed (Context creation runs
+    # the selftest on the card: outside the counted runs)
+    blind_seed = hashlib.sha256(b"blind %d" % args.seed).digest()
+    ctx = context.Context(dev).randomize(blind_seed)
     results = {k: {"name": k, "route": "cuda", "source": SOURCES[k],
                    "replaces": REPLACES[k], "match": True,
                    "max_abs_err": 0, "library_ms": None}
@@ -615,6 +927,12 @@ def main() -> int:
 
     tensors = {n: kernel_inputs(*batches[n][:3], dev) for n in batches}
     stensors = {n: schnorr_inputs(*sbatches[n][:3], dev) for n in sbatches}
+    gtensors = {n: sign_inputs(*gbatches[n][:2], ctx.blind, dev)
+                for n in gbatches}
+    gstensors = {n: ssign_inputs(*gsbatches[n][:3], dev) for n in gsbatches}
+    # which tensors each sign kernel is held and timed on
+    sign_sets = {"ecdsa_finish": gtensors, "fixedbase_blinded": gtensors,
+                 "affine_xy": gstensors, "muladd_n": gstensors}
     selftest_t = [dict(px=x, py=y, chain=n)
                   for x, y, n, _ in context.selftest_operands(dev)]
     for t in selftest_t:
@@ -653,6 +971,27 @@ def main() -> int:
                 results[name]["plain_ms"] = plain_ms
             elif n in sizes:
                 results[name][f"{pre}plain_ms_{n}"] = plain_ms
+        for name in SIGN_KERNELS:
+            err, plain_ms = compare(name, sign_sets[name][n])
+            record(name, f"{n} lanes, sign path", err, plain_ms)
+            if n == sizes[0]:
+                results[name]["plain_ms"] = plain_ms
+            elif n in sizes:
+                results[name][f"plain_ms_{n}"] = plain_ms
+        # sha256 on the operands of every launch of the two sign paths
+        # (HMAC key blocks from the IV, the 97-byte RFC6979 message,
+        # tagged hashes from their midstates), caught from one call each
+        msgs, secs = gbatches[n][:2]
+        smsgs, ssecs, sauxs = gsbatches[n][:3]
+        sha_sets = sha_operands(lambda: ecdsa.sign(msgs, secs, device=dev))
+        sha_sets += sha_operands(lambda: schnorrsig.sign(
+            smsgs, ssecs, sauxs, device=dev))
+        checks = [compare("sha256", t) for t in sha_sets]
+        most = max(t["sha_blocks"].shape[0] // 16 for t in sha_sets)
+        record("sha256", f"{n} lanes, sign paths: {len(sha_sets)} launches "
+               f"of 1-{most} blocks", max(e for e, _ in checks),
+               sum(ms for _, ms in checks))
+        del sha_sets
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -692,6 +1031,62 @@ def main() -> int:
             if wrong:
                 raise SystemExit(f"{path} verify mask wrong on {wrong} of "
                                  f"{n} lanes")
+    def wrong_lanes(sig, ok, want_sig, want_ok, recid=None, want_recid=None):
+        """Lanes whose ok, signature bytes or (on ok lanes) recid differ
+        from the host's."""
+        sig, ok = sig.cpu().numpy(), ok.cpu().numpy()
+        bad = (ok != want_ok) | (sig != want_sig).any(1)
+        if recid is not None:
+            bad |= want_ok & (recid.cpu().numpy() != want_recid)
+        return int(bad.sum())
+
+    for n in sizes:
+        msgs, secs, want_sig, want_recid, want_ok, pub = gbatches[n]
+        sig, recid, ok = counted("ecdsa_sign",
+                                 lambda: ecdsa.sign(msgs, secs, device=dev))
+        assert sig.shape == (n, 64) and sig.dtype == torch.uint8 \
+            and sig.is_cuda and recid.shape == (n,) and ok.shape == (n,)
+        wrong = wrong_lanes(sig, ok, want_sig, want_ok, recid, want_recid)
+        vok = counted("ecdsa", lambda: ecdsa.verify(msgs, sig, pub,
+                                                    device=dev))
+        unverified = int((ok & ~vok).sum())
+        bsig, brecid, bok = counted("ecdsa_sign_blinded", lambda: ecdsa.sign(
+            msgs, secs, blind=ctx.blind, device=dev))
+        blind_diff = int(((bsig != sig).any(1) | (brecid != recid)
+                          | (bok != ok)).sum())
+        emit("main_path", path="ecdsa_sign", lanes=n, ok=int(ok.sum()),
+             wrong_lanes=wrong, ok_lanes_not_verified=unverified,
+             blinded_lanes_differing=blind_diff,
+             launches=PATHS["ecdsa_sign"],
+             launches_blinded=PATHS["ecdsa_sign_blinded"])
+        if wrong or unverified or blind_diff:
+            raise SystemExit(f"ecdsa sign wrong at {n} lanes: {wrong} "
+                             f"against the host, {unverified} not verified, "
+                             f"{blind_diff} changed by the blinding")
+        msgs, secs, auxs, want_sig, want_ok, pxs = gsbatches[n]
+        sig, ok = counted("schnorr_sign", lambda: schnorrsig.sign(
+            msgs, secs, auxs, device=dev))
+        assert sig.shape == (n, 64) and sig.is_cuda and ok.shape == (n,)
+        wrong = wrong_lanes(sig, ok, want_sig, want_ok)
+        vectors = int((sig[3:3 + len(BIP340_SIGN_VECTORS)].cpu().numpy()
+                       != want_sig[3:3 + len(BIP340_SIGN_VECTORS)]).any(1)
+                      .sum())
+        vok = counted("schnorr", lambda: schnorrsig.verify(msgs, sig, pxs,
+                                                           device=dev))
+        unverified = int((ok & ~vok).sum())
+        bsig, bok = counted("schnorr_sign_blinded", lambda: schnorrsig.sign(
+            msgs, secs, auxs, blind=ctx.blind, device=dev))
+        blind_diff = int(((bsig != sig).any(1) | (bok != ok)).sum())
+        emit("main_path", path="schnorr_sign", lanes=n, ok=int(ok.sum()),
+             wrong_lanes=wrong, bip340_vectors_wrong=vectors,
+             ok_lanes_not_verified=unverified,
+             blinded_lanes_differing=blind_diff,
+             launches=PATHS["schnorr_sign"],
+             launches_blinded=PATHS["schnorr_sign_blinded"])
+        if wrong or vectors or unverified or blind_diff:
+            raise SystemExit(f"schnorr sign wrong at {n} lanes: {wrong} "
+                             f"against the host, {unverified} not verified, "
+                             f"{blind_diff} changed by the blinding")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
     if idle:
         raise SystemExit(f"main path never launched: {idle}")
@@ -718,6 +1113,8 @@ def main() -> int:
         if name in SCHNORR_KERNELS:
             runs.append(("schnorr_" if name in ECDSA_KERNELS else "",
                          stensors))
+        if name in SIGN_KERNELS:
+            runs.append(("", sign_sets[name]))
         for pre, tset in runs:
             chain = (CHAIN_N if chain64 else
                      SHA_VERIFY_BLOCKS if name == "sha256" else 1)
@@ -731,10 +1128,16 @@ def main() -> int:
                                          bound_by=b_by)
                 emit("timing", name=pre + name, lanes=n, ms=ms,
                      bound_ms=b_ms, bound_by=b_by, lanes_per_s=n / ms * 1e3)
-    for path, entry, data in (("ecdsa", ecdsa.verify, batches),
-                              ("schnorr", schnorrsig.verify, sbatches)):
+    # whole calls: (name, entry point, batches, tensor arguments, rate key)
+    calls = (("ecdsa.verify", ecdsa.verify, batches, 3, "verifies_per_s"),
+             ("schnorr.verify", schnorrsig.verify, sbatches, 3,
+              "verifies_per_s"),
+             ("ecdsa.sign", ecdsa.sign, gbatches, 2, "signatures_per_s"),
+             ("schnorr.sign", schnorrsig.sign, gsbatches, 3,
+              "signatures_per_s"))
+    for label, entry, data, nargs, rate in calls:
         for n in sizes:
-            on_dev = [x.to(dev) for x in data[n][:3]]
+            on_dev = [x.to(dev) for x in data[n][:nargs]]
 
             def whole():
                 entry(*on_dev, device=dev)
@@ -747,11 +1150,11 @@ def main() -> int:
                 whole()
                 walls.append((time.perf_counter() - t1) * 1e3)
             ms = float(np.median(walls))
-            emit("timing", name=f"{path}.verify", lanes=n, ms=ms,
-                 verifies_per_s=n / ms * 1e3)
+            emit("timing", name=label, lanes=n, ms=ms,
+                 **{rate: n / ms * 1e3})
             # where the call's time goes: the card's kernels, by name
             wall, dev_ms, nkern, top = profile_call(whole)
-            emit("profile", name=f"{path}.verify", lanes=n,
+            emit("profile", name=label, lanes=n,
                  profiled_wall_ms=wall, device_ms=dev_ms, kernels=nkern,
                  device_busy_share=dev_ms / ms, top=top)
 

@@ -1,27 +1,35 @@
-"""Start-up self test of the port.
+"""Library context: start-up self test and generator blinding.
 
-Counterpart of the JAX package's ``context.selftest`` (a known-answer test
-run at context creation, as the reference C library's
-``secp256k1_selftest`` does).  It runs that test — the SHA256 compression
-of one known message — through the port's host compression
-(``utils/sha256_host``) and through ``ops/sha256.compress`` on the
-device, which on a card is the hand-written SHA-256 kernel.  It also
-checks what the verify slices stand on: the field multiply of the kernel
-library, through ``mulmod_chain`` (the kernel on a CUDA device, its plain
-version on the CPU), against Python integers.  ``Context`` and generator
-blinding wait for the signing slice.
+Counterpart of the JAX package's ``context.py``.  ``selftest`` is the
+known-answer test run at context creation, as the reference C library's
+``secp256k1_selftest`` does: the SHA256 compression of one known message
+through the port's host compression (``utils/sha256_host``) and through
+``ops/sha256.compress`` on the device, which on a card is the
+hand-written SHA-256 kernel, and the field multiply of the kernel library
+through ``mulmod_chain`` (the kernel on a CUDA device, its plain version
+on the CPU) against Python integers.
+
+``Context`` holds the ecmult_gen blinding state (``randomize``) and the
+pluggable compression hook (``set_hash_compress``).  Unlike the JAX
+package's it holds no ``GenTable``: the portable ``ops/ecmult.py`` that
+table serves is not ported yet, and the comb kernel's tables live in
+``ops/cuda_gen``.
 """
 
 from __future__ import annotations
 
+import hashlib
+import hmac as _hmac
 import struct
+from functools import lru_cache
 
 import torch
 
 from .config import resolve_device
 from .ops import cuda_field
 from .ops import sha256 as H
-from .utils import sha256_host
+from .ops.cuda_gen import Blind
+from .utils import hostcurve, sha256_host
 
 # the JAX package's known-answer test (context.py there): one 64-byte
 # message block, then the padding block of a 64-byte message
@@ -89,3 +97,77 @@ def selftest(device="cuda") -> None:
                 raise RuntimeError(
                     f"field multiply selftest failure on {dev}: "
                     f"{hex(have)} != {hex(want)}")
+
+
+def _derive_blind(seed32: bytes, n: int) -> int:
+    """HMAC-SHA256 DRBG -> scalar in [1, n-1], on the host.
+
+    The derivation shape of the reference's ecmult_gen_blind
+    (src/ecmult_gen_impl.h:306-331: an rfc6979 chain keyed on the seed,
+    retried until valid)."""
+    v = b"\x01" * 32
+    k = b"\x00" * 32
+    k = _hmac.new(k, v + b"\x00" + seed32, hashlib.sha256).digest()
+    v = _hmac.new(k, v, hashlib.sha256).digest()
+    k = _hmac.new(k, v + b"\x01" + seed32, hashlib.sha256).digest()
+    v = _hmac.new(k, v, hashlib.sha256).digest()
+    while True:
+        v = _hmac.new(k, v, hashlib.sha256).digest()
+        b = int.from_bytes(v, "big")
+        if 0 < b < n:
+            return b
+        k = _hmac.new(k, v + b"\x00", hashlib.sha256).digest()
+        v = _hmac.new(k, v, hashlib.sha256).digest()
+
+
+class Context:
+    """The ecmult_gen blinding state (``blind``: None until
+    :meth:`randomize`, as the reference's static context is unblinded,
+    src/secp256k1.c:90-98) of callers on ``device``.  Creation runs
+    :func:`selftest` on that device (default ``"cuda"``, which raises when
+    there is no card)."""
+
+    def __init__(self, device="cuda", hash_compress=None):
+        self.device = resolve_device(device)
+        selftest(self.device)
+        if hash_compress is not None:
+            self.set_hash_compress(hash_compress)
+        self.blind = None
+
+    def set_hash_compress(self, fn) -> None:
+        """Install a custom SHA256 compression for every hash of the
+        library (None restores the built-in route) and check it with a
+        known answer on the context's device; a function that fails is
+        taken out again before this raises.  The per-context compression
+        hook of the fork (include/secp256k1.h:420-446); process-global,
+        like the JAX package's."""
+        prev = H.set_compress(fn)
+        if fn is None:
+            return
+        try:
+            msg = torch.full((1, 32), 0x61, dtype=torch.uint8,
+                             device=self.device)
+            got = bytes(H.words_to_bytes32(H.sha256_bytes(msg))[0].tolist())
+            if got != hashlib.sha256(b"\x61" * 32).digest():
+                raise RuntimeError(
+                    "custom SHA256 compression failed the selftest KAT")
+        except Exception:
+            H.set_compress(prev)
+            raise
+
+    def randomize(self, seed32: bytes | None = None) -> "Context":
+        """Derive the blinding from seed32 (secp256k1_context_randomize,
+        src/secp256k1.c:833-841): b from an HMAC-DRBG, and -b*G by host
+        arithmetic.  seed32=None resets to the unblinded state."""
+        if seed32 is None:
+            self.blind = None
+            return self
+        b = _derive_blind(bytes(seed32), hostcurve.N)
+        gbx, gby = hostcurve.mul(hostcurve.N - b)
+        self.blind = Blind(b, gbx, gby)
+        return self
+
+
+@lru_cache(maxsize=4)
+def default_context(device="cuda") -> Context:
+    return Context(device)

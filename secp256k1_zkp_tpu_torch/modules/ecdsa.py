@@ -1,9 +1,11 @@
-"""Batched ECDSA verify over secp256k1 on PyTorch tensors.
+"""Batched ECDSA over secp256k1 on PyTorch tensors.
 
-Counterpart of the JAX package's ``modules/ecdsa.py``: ``sig_parse_compact``
-and ``verify``, the kernel pipeline of ``verify_tpu``.  ``sign``,
-``recover`` and the RFC6979 nonces wait for the slice that ports SHA256
-and the signing kernels.
+Counterpart of the JAX package's ``modules/ecdsa.py``: ``sig_parse_compact``,
+``verify`` (the kernel pipeline of ``verify_tpu``), the RFC6979 nonces
+(``rfc6979_nonce``, ``_pick_nonce``) and ``sign`` (the kernel pipeline of
+``sign_tpu``: deterministic nonces, low-S, recovery id).  ``recover`` and
+``modules/recovery.py`` wait for the portable ``ops/ecmult.py`` they run
+on in the JAX package.
 
 Batched-first: byte tensors are ``[B, 32]`` / ``[B, 64]`` uint8; the result
 is a per-lane ``ok`` mask instead of an int return code.
@@ -17,8 +19,9 @@ from ..config import resolve_device
 from ..ops import cuda_gen, cuda_group, cuda_scalar
 from ..ops import field as F
 from ..ops import scalar as S
+from ..ops import sha256 as H
 from ..ops.group import GE
-from ..ops.limb import LB
+from ..ops.limb import LB, MASK16
 
 
 def sig_parse_compact(sig64: torch.Tensor):
@@ -32,6 +35,11 @@ def sig_parse_compact(sig64: torch.Tensor):
 def kernel_rows(a: LB) -> torch.Tensor:
     """``[B, 16]`` int64 limbs -> the kernels' ``[16, B]`` int32 operand."""
     return a.v.T.to(torch.int32).contiguous()
+
+
+def from_rows(t: torch.Tensor) -> LB:
+    """The kernels' ``[16, B]`` int32 limbs -> ``[B, 16]`` int64 ``LB``."""
+    return LB(t.T.to(torch.int64).contiguous(), MASK16)
 
 
 def verify(msg32, sig64, pub: GE, device="cuda"):
@@ -65,3 +73,68 @@ def verify(msg32, sig64, pub: GE, device="cuda"):
     _, _, _, _, ok = cuda_group.ecmult_glv(digs, flags, px, py, pub.inf,
                                            gjac, rx=r_t)
     return ok & nonzero & ~pub.inf & ~S.is_high(s) & sig_ok
+
+
+def rfc6979_nonce(msg32, sec32, counter_rounds: int = 2):
+    """Batched RFC6979 candidates, ``[counter_rounds, B, 8]`` words: the
+    reference's nonce_function_rfc6979 with no extra data
+    (src/secp256k1.c:519-560), key material sec32 || msg32."""
+    kw = torch.cat([H.bytes32_to_words(sec32), H.bytes32_to_words(msg32)],
+                   -1)
+    drbg = H.RFC6979(kw)
+    return torch.stack([drbg.generate32() for _ in range(counter_rounds)], 0)
+
+
+def _pick_nonce(nonces_words):
+    """The first candidate that is nonzero and < n, as the reference's
+    retry loop takes it (secp256k1.c:585-634); two candidates leave a
+    failure probability of about 2^-127.  Returns (k ``LB``, ok)."""
+    chosen = chosen_ok = None
+    for cand in nonces_words.unbind(0):
+        k, ovf = S.from_bytes_be(H.words_to_bytes32(cand))
+        ok = ~ovf & ~S.is_zero(k)
+        if chosen is None:
+            chosen, chosen_ok = k, ok
+        else:
+            chosen = S.select(~chosen_ok & ok, k, chosen)
+            chosen_ok = chosen_ok | ok
+    return chosen, chosen_ok
+
+
+def sign(msg32, sec32, blind=None, device="cuda"):
+    """Batched deterministic ECDSA sign (RFC6979 nonces, low-S).
+
+    msg32, sec32 ``[B, 32]`` uint8; returns (sig64 ``[B, 64]`` uint8
+    compact r || s, recid ``[B]`` int32, ok ``[B]`` bool) on ``device``
+    (default ``"cuda"``, which raises when there is no card).  ok is false
+    where the key is 0 or >= n (or, unreachably, r or s is 0); the
+    signature is zeroed there.  ``blind`` is a ``Context.blind`` (or None):
+    it changes the addition chain of k*G, never a byte of the result.
+
+    The steps of ``sign_tpu``: parse d, RFC6979 in plain PyTorch (on a
+    card every hash is the SHA-256 kernel: 40 launches), k*G by the comb
+    kernel (blinded or not), then the finish kernel for r, s, recid."""
+    dev = resolve_device(device)
+    msg32 = torch.as_tensor(msg32).to(dev)
+    sec32 = torch.as_tensor(sec32).to(dev)
+    if msg32.dim() != 2:
+        raise ValueError("sign expects a 1-D batch: msg32 [B, 32]")
+    lanes = msg32.shape[0]
+    if lanes == 0:                           # nothing to launch
+        return (torch.zeros((0, 64), dtype=torch.uint8, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+
+    d, d_ovf = S.from_bytes_be(sec32)
+    d_ok = ~d_ovf & ~S.is_zero(d)
+    k, k_ok = _pick_nonce(rfc6979_nonce(msg32, sec32))
+    m, _ = S.from_bytes_be(msg32)
+
+    k_t = kernel_rows(k)
+    x, y, z = cuda_gen.ecmult_gen(k_t, blind)
+    r_t, s_t, recid, fin_ok = cuda_gen.ecdsa_sign_finish(
+        x, y, z, k_t, kernel_rows(m), kernel_rows(d))
+    ok = d_ok & k_ok & fin_ok
+    sig64 = torch.cat([S.to_bytes_be(from_rows(r_t)),
+                       S.to_bytes_be(from_rows(s_t))], -1)
+    return sig64 * ok[:, None], recid, ok

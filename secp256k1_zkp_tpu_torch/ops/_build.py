@@ -40,11 +40,15 @@ _SIGNATURES = {
     "secp_mulmod_chain": [_VP, _VP, _VP, _INT, _INT, _VP],
     "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "secp_fixedbase_digits": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "secp_fixedbase_digits_blinded": [_VP] * 6 + [_INT, _VP],
     "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP],
     "secp_lift_x": [_VP, _VP, _VP, _INT, _VP],
     "secp_glv_only": [_VP, _VP, _VP, _INT, _VP],
     "secp_schnorr_check": [_VP] * 6 + [_INT, _VP],
     "secp_sha256": [_VP, _VP, _VP, _INT, _INT, _VP],
+    "secp_ecdsa_finish": [_VP] * 9 + [_INT, _VP],
+    "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
+    "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
 }
 
 _LIB = None
@@ -52,7 +56,8 @@ BUILD_SECONDS = None        # wall seconds of the build done by this process
 LAUNCH_COUNTS: dict[str, int] = {
     "mulmod_chain": 0, "ecdsa_prep": 0, "fixedbase_digits": 0,
     "ecmult_glv": 0, "lift_x": 0, "glv_only": 0, "schnorr_check": 0,
-    "sha256": 0}
+    "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
+    "fixedbase_blinded": 0}
 
 
 def count_launch(name: str) -> None:

@@ -113,6 +113,16 @@ def _add_mod_n(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return canon_n(t)
 
 
+def _neg_mod_n(a: torch.Tensor) -> torch.Tensor:
+    """n - a for canonical a (a == 0 -> n -> canonical 0)."""
+    return canon_n(_sub_from_const(N_ORDER, a))
+
+
+def _is_zero16(a: torch.Tensor) -> torch.Tensor:
+    """``[B]`` bool: all 16 limbs of the lane are zero."""
+    return (a == 0).all(0)
+
+
 def mul_shift384_round(k: torch.Tensor, g: int) -> torch.Tensor:
     """round(k * g / 2^384) -> ``[8, B]`` limbs (k canonical)."""
     cols, c = ripple(mul_cols(k, const_rows(g, k)))       # 31 exact limbs
@@ -138,8 +148,8 @@ def glv_split(k: torch.Tensor):
 
     def mag(r):
         negf = _is_gt_const(r, _N_HALF)
-        nr = canon_n(_sub_from_const(N_ORDER, r))     # r=0 -> n -> 0
-        return torch.where(negf[None, :], nr, r)[:8], negf.to(I64)
+        return torch.where(negf[None, :], _neg_mod_n(r), r)[:8], \
+            negf.to(I64)
 
     a1, neg1 = mag(r1)
     a2, neg2 = mag(r2)

@@ -1,10 +1,11 @@
 """Batched SHA-256 and BIP-340 tagged hashes on PyTorch tensors.
 
-Counterpart of the JAX package's ``ops/sha256.py``, cut to what the
-Schnorr-verify slice uses: ``compress``, padding, ``sha256_words``,
-``sha256_bytes``, ``tagged_hash_words``, ``tagged_hash_bytes``, the word
-/ byte codecs and the ``set_compress`` hook.  ``hmac_sha256``,
-``RFC6979`` and ``Sha256Stream`` wait for the signing slice.
+Counterpart of the JAX package's ``ops/sha256.py``: ``compress``,
+padding, ``sha256_words``, ``sha256_bytes``, ``tagged_hash_words``,
+``tagged_hash_bytes``, ``hmac_sha256``, ``hmac_sha256_bytes``, the
+``RFC6979`` HMAC-DRBG, the word / byte codecs and the ``set_compress``
+hook.  ``Sha256Stream`` waits for a slice that keeps a running
+transcript.
 
 Data layout as in the JAX package: 32-bit big-endian words, batch first,
 ``[..., W]``.  Words are held in ``int64`` and masked with ``0xFFFFFFFF``
@@ -185,6 +186,76 @@ def tagged_hash_words(tag: str, words: torch.Tensor) -> torch.Tensor:
 def tagged_hash_bytes(tag: str, msg: torch.Tensor) -> torch.Tensor:
     """Tagged hash of a byte message ``[..., L]`` -> ``[..., 8]`` words."""
     return sha256_bytes(msg, init_state=tag_midstate(tag), consumed_bytes=64)
+
+
+def _hmac_states(key8: torch.Tensor):
+    """The inner and outer HMAC states of a 32-byte key ``[..., 8]``:
+    one compression each of the key block XOR ipad / opad."""
+    kblock = torch.cat([key8.to(I64), torch.zeros_like(key8, dtype=I64)],
+                       -1)
+    init = _start(None, key8.shape[:-1], key8.device)
+    return (compress(init, kblock ^ 0x36363636),
+            compress(init, kblock ^ 0x5C5C5C5C))
+
+
+def hmac_sha256(key8: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
+    """HMAC-SHA256 with a 32-byte key (``[..., 8]`` words) over a
+    whole-word message ``[..., W]`` -> ``[..., 8]`` (cf. hmac_sha256,
+    src/hash_impl.h:216).  On the card: four kernel launches."""
+    inner, outer = _hmac_states(key8)
+    ihash = sha256_words(msgs, init_state=inner, consumed_bytes=64)
+    return sha256_words(ihash, init_state=outer, consumed_bytes=64)
+
+
+def hmac_sha256_bytes(key8: torch.Tensor, msg: torch.Tensor):
+    """HMAC-SHA256, 32-byte key, byte message ``[..., L]`` (static L)."""
+    inner, outer = _hmac_states(key8)
+    ihash = sha256_bytes(msg, init_state=inner, consumed_bytes=64)
+    return sha256_words(ihash, init_state=outer, consumed_bytes=64)
+
+
+class RFC6979:
+    """Batched RFC6979 HMAC-SHA256 DRBG (cf. rfc6979_hmac_sha256_*,
+    src/hash_impl.h:255-318).  Key material: ``keydata_words`` ``[..., W]``
+    words — seckey32 || msg32 for the reference's default nonce function
+    (src/secp256k1.c:519-560).  Construction runs four HMACs, each
+    :meth:`generate32` three."""
+
+    def __init__(self, keydata_words: torch.Tensor):
+        w = keydata_words.to(I64)
+        kb = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
+                          (w >> 8) & 0xFF, w & 0xFF], -1) \
+            .reshape(*w.shape[:-1], 4 * w.shape[-1]).to(torch.uint8)
+        batch = kb.shape[:-1]
+        v = torch.full((*batch, 8), 0x01010101, dtype=I64, device=kb.device)
+        k = torch.zeros_like(v)
+        k = self._hmac_vbyte(k, v, kb, 0x00)
+        v = hmac_sha256(k, v)
+        k = self._hmac_vbyte(k, v, kb, 0x01)
+        v = hmac_sha256(k, v)
+        self.k, self.v = k, v
+
+    @staticmethod
+    def _hmac_vbyte(k, v, keydata_bytes, sep_byte: int):
+        """HMAC(k, v || sep_byte || keydata): a byte message, which the
+        one-byte separator leaves unaligned to words."""
+        sep = torch.full((*v.shape[:-1], 1), sep_byte, dtype=torch.uint8,
+                         device=v.device)
+        msg = torch.cat([words_to_bytes32(v), sep, keydata_bytes], -1)
+        return hmac_sha256_bytes(k, msg)
+
+    def generate32(self) -> torch.Tensor:
+        """One 32-byte candidate as ``[..., 8]`` words; then the state
+        steps on for the next (rfc6979_hmac_sha256_generate,
+        src/hash_impl.h:295): k = HMAC(k, v || 0x00), v = HMAC(k, v)."""
+        self.v = hmac_sha256(self.k, self.v)
+        out = self.v
+        zero = torch.zeros((*out.shape[:-1], 1), dtype=torch.uint8,
+                           device=out.device)
+        self.k = hmac_sha256_bytes(
+            self.k, torch.cat([words_to_bytes32(self.v), zero], -1))
+        self.v = hmac_sha256(self.k, self.v)
+        return out
 
 
 def bytes32_to_words(b: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cuda_gen import Blind
 from ..ops.group import GE
 from ..ops.limb import DTYPE, LB, LIMBS, MASK16
 
@@ -47,3 +48,20 @@ def comb_table_from_jax(tab) -> torch.Tensor:
     if arr[:, _COMB_ENTRIES:].any():
         raise ValueError("padding columns of the comb table must be zero")
     return torch.from_numpy(arr[:, :_COMB_ENTRIES].copy())
+
+
+def blind_from_jax(blind):
+    """The JAX package's ``Context.blind`` — (b as 16 int limbs, -b*G's x
+    and y as ``[16]`` uint32 limb arrays), or None — -> the port's
+    ``Blind`` of Python ints (or None)."""
+    if blind is None:
+        return None
+
+    def val(limbs):
+        arr = np.asarray(limbs).astype(np.int64).reshape(-1)
+        if arr.shape != (LIMBS,) or (arr > MASK16).any() or (arr < 0).any():
+            raise ValueError(f"expected {LIMBS} limbs of 16 bits, got {arr}")
+        return sum(int(v) << (16 * i) for i, v in enumerate(arr))
+
+    b_limbs, gbx, gby = blind
+    return Blind(val(b_limbs), val(gbx), val(gby))

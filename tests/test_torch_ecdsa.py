@@ -190,11 +190,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    field, group, limb, scalar, sha256)\n"
         "from secp256k1_zkp_tpu_torch.utils import (convert, hostcurve,\n"
         "    sha256_host)\n"
+        "context.selftest('cpu')\n"
+        "ctx = context.Context('cpu').randomize(bytes(32))\n"
+        "assert ctx.blind is not None and context.default_context('cpu')\n"
+        "for fn in (ecdsa.sign, ecdsa.rfc6979_nonce, schnorrsig.sign,\n"
+        "           schnorrsig.keypair_xonly, cuda_gen.ecmult_gen,\n"
+        "           cuda_gen.ecdsa_sign_finish, cuda_gen.affine_xy,\n"
+        "           cuda_gen.muladd_n, sha256.hmac_sha256, sha256.RFC6979,\n"
+        "           convert.blind_from_jax):\n"
+        "    assert callable(fn)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'secp256k1_zkp_tpu'\n"
         "       or m.startswith('secp256k1_zkp_tpu.') or m == 'triton']\n"
         "assert not bad, bad\n"
-        "context.selftest('cpu')\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=str(_build.SRC_DIR.parent.parent))

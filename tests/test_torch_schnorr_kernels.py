@@ -20,9 +20,9 @@ against Python integers.
 Tolerance: 0 (integers, digit rows, masks).  The SHA-256 kernel's plain
 version is held against the JAX package in test_torch_sha256.py.  On CPU
 tensors every wrapper takes its plain version; the launch counters must
-not move.  Also here: the C entry points in ``csrc/`` and the ``ctypes``
-signatures in ``ops/_build.py`` agree, so a binding fault shows on the
-CPU.
+not move.  Also here: the C entry points in ``csrc/`` (the sign slice's
+too) and the ``ctypes`` signatures in ``ops/_build.py`` agree, so a
+binding fault shows on the CPU.
 """
 
 import re
@@ -207,5 +207,9 @@ def test_c_entry_points_match_ctypes_signatures():
                        (_build.SRC_DIR.parent / "ops").glob("cuda_*.py"))
     counted = set(re.findall(r'count_launch\("(\w+)"\)', wrappers))
     assert counted == set(_build.LAUNCH_COUNTS)
-    assert {"lift_x.cu", "glv_only.cu", "schnorr_check.cu",
-            "sha256.cu"} <= {p.name for p in _build.sources()}
+    assert {"lift_x.cu", "glv_only.cu", "schnorr_check.cu", "sha256.cu",
+            "ecdsa_finish.cu", "affine_xy.cu", "muladd_n.cu"} \
+        <= {p.name for p in _build.sources()}
+    # the sign slice's entry points, the blinded comb's among them
+    assert {"secp_fixedbase_digits_blinded", "secp_ecdsa_finish",
+            "secp_affine_xy", "secp_muladd_n"} <= set(entries)

@@ -152,6 +152,38 @@ def test_set_compress_routes_every_hash():
     TH.tagged_hash_bytes("BIP0340/challenge", msg)
     assert len(calls) == 2                   # reset: the spy is gone
 
+    # through a Context, as tests/test_context.py does for the JAX
+    # package: the spy is installed after its known-answer test ...
+    calls.clear()
+    ctx = context.Context("cpu", hash_compress=spy)
+    try:
+        assert calls, "the KAT did not route through the override"
+        n0 = len(calls)
+        assert torch.equal(TH.tagged_hash_bytes("BIP0340/challenge", msg),
+                           plain)
+        assert len(calls) == n0 + 2
+    finally:
+        ctx.set_hash_compress(None)
+    assert TH._COMPRESS_OVERRIDE is None
+
+    # ... and a broken compression raises and leaves the previous route
+    def broken(state, block):
+        return TH.compress_plain(state, block) ^ 1
+
+    with pytest.raises(RuntimeError, match="KAT"):
+        ctx.set_hash_compress(broken)
+    assert TH._COMPRESS_OVERRIDE is None
+    ctx.set_hash_compress(spy)
+    try:
+        with pytest.raises(RuntimeError, match="KAT"):
+            ctx.set_hash_compress(broken)
+        assert TH._COMPRESS_OVERRIDE is spy
+    finally:
+        ctx.set_hash_compress(None)
+    with pytest.raises(RuntimeError):
+        context.Context("cpu", hash_compress=broken)
+    assert TH._COMPRESS_OVERRIDE is None
+
 
 def test_selftest_runs_the_sha256_kat():
     """``context.selftest`` holds the compression to the JAX package's
