@@ -8,15 +8,21 @@ Drives the port's main paths through the entry points a user calls —
 batched BIP-340 Schnorr verify (``modules.schnorrsig.verify``), batched
 ECDSA sign (``modules.ecdsa.sign``) and batched BIP-340 sign
 (``modules.schnorrsig.sign``), blinded by a ``context.Context`` and not,
-each at 16,384 and 262,144 lanes — builds the eleven hand-written kernels
-from the sources in this checkout, holds each (and the blinded variant of
-the comb kernel) against its plain PyTorch version on the card at every
-shape those paths give it (exact equality: the values are integers, the
-tolerance is 0), checks every signature byte against one made on the host
-with Python integers, ``hashlib`` and ``hmac``, feeds the port's own
-signatures to its verify, times the kernels and the calls, and prints one
-JSON line per phase.  Any failed phase raises: nothing is caught.
-Without a CUDA device the script exits non-zero and prints no result.
+each at 16,384 and 262,144 lanes, BIP-340 batch verification
+(``modules.schnorrsig.batch_verify``) at the same sizes, and a 2^20-point
+multi-scalar multiplication (``ops.msm.ecmult_multi``) — builds the
+fifteen hand-written kernels from the sources in this checkout, holds each
+(and the blinded variant of the comb kernel) against its plain PyTorch
+version on the card at every shape those paths give it (exact equality:
+the values are integers, the tolerance is 0; the MSM engine's window
+partials and finish lanes as points, since their jacobian form depends on
+the order of the additions), checks every signature byte against one made
+on the host with Python integers, ``hashlib`` and ``hmac``, feeds the
+port's own signatures to its verify, checks batch verification's verdicts
+and its right-hand point, and the MSM, against Python integers, times the
+kernels and the calls, and prints one JSON line per phase.  Any failed
+phase raises: nothing is caught.  Without a CUDA device the script exits
+non-zero and prints no result.
 
 Bounds: ``bound_ms`` is the larger of bytes/3.35 TB/s (each operand read
 once, each result written once) and operations/67 TOP/s, the card's
@@ -42,6 +48,12 @@ read at the verify shape.  The blinded comb is also held on the lanes
 k = n - b, 0, 1 and n - 1, the special cases of its last complete add.  ``fixedbase_blinded`` is ``csrc/fixedbase.cu``'s blinded
 entry point (one more mixed add of -b*G), counted apart from the
 unblinded one so that each shows its launches.
+
+The MSM engine's bounds count this run's data: ``msm_winreduce`` one mixed
+add per nonzero digit of a finite point (zero digits and infinite points
+add nothing), reading the table, digits and flags once; ``msm_finish`` four
+doublings per window on each of its lanes and one jacobian add per
+partial; ``gej_add`` is read at the widest collapse level (64 lanes).
 """
 
 from __future__ import annotations
@@ -62,9 +74,10 @@ import torch
 from secp256k1_zkp_tpu_torch import context
 from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig
 from secp256k1_zkp_tpu_torch.ops import (_build, cuda_field, cuda_gen,
-                                         cuda_group, cuda_scalar,
-                                         cuda_sha256)
+                                         cuda_group, cuda_msm, cuda_scalar,
+                                         cuda_sha256, msm)
 from secp256k1_zkp_tpu_torch.ops import field as F
+from secp256k1_zkp_tpu_torch.ops import group as G
 from secp256k1_zkp_tpu_torch.ops import scalar as S
 from secp256k1_zkp_tpu_torch.ops import sha256 as H
 from secp256k1_zkp_tpu_torch.ops.group import GE
@@ -119,6 +132,15 @@ OPS = {
     "muladd_n": SC_MUL + 2 * 8,
     # the 37 rows and the blinding point, one mixed add each
     "fixedbase_blinded": 38 * ADD_AFF,
+    "gej_add": ADD_JAC,
+    # 2P, 13 mixed adds with z-ratios, the inverse, Z^-2, Z^-3, entry 15;
+    # entries 14..1: the ratio product, its square, 5 multiplies
+    "msm_table": (DOUBLE + 13 * ADD_AFF + MODINV + SQR + 3 * MUL
+                  + 14 * (SQR + 5 * MUL) + 13 * MUL),
+    # per nonzero digit of a finite point (msm_bound)
+    "msm_winreduce": ADD_AFF,
+    # per lane and window (msm_bound; plus one ADD_JAC per partial)
+    "msm_finish": 4 * DOUBLE,
 }
 # 32-bit elements read + written per lane
 WORDS = {
@@ -134,6 +156,8 @@ WORDS = {
     "affine_xy": 3 * 16 + 2 * 16,
     "muladd_n": 3 * 16 + 1 + 16,
     "fixedbase_blinded": 37 + 3 * 16,   # -b*G: 16 words for all lanes
+    "gej_add": 3 * (3 * 16 + 1),
+    "msm_table": 2 * 16 + 1 + 15 * 16,
 }
 REPLACES = {
     "mulmod_chain": "secp256k1_zkp_tpu/ops/pallas_field.py:183",
@@ -150,6 +174,11 @@ REPLACES = {
     "muladd_n": "secp256k1_zkp_tpu/ops/pallas_gen.py:438",
     "fixedbase_blinded": "secp256k1_zkp_tpu/ops/pallas_gen.py:114 "
                          "(blinded, tail at :162-165)",
+    "gej_add": "secp256k1_zkp_tpu/ops/pallas_group.py:326",
+    "msm_table": "secp256k1_zkp_tpu/ops/pallas_msm.py:58",
+    "msm_winreduce": "secp256k1_zkp_tpu/ops/pallas_msm.py:131",
+    "msm_finish": "secp256k1_zkp_tpu/ops/pallas_msm.py:224 "
+                  "(+ _collapse128 at :324)",
 }
 SOURCES = {
     "mulmod_chain": "secp256k1_zkp_tpu_torch/csrc/mulmod_chain.cu",
@@ -164,12 +193,20 @@ SOURCES = {
     "affine_xy": "secp256k1_zkp_tpu_torch/csrc/affine_xy.cu",
     "muladd_n": "secp256k1_zkp_tpu_torch/csrc/muladd_n.cu",
     "fixedbase_blinded": "secp256k1_zkp_tpu_torch/csrc/fixedbase.cu",
+    "gej_add": "secp256k1_zkp_tpu_torch/csrc/gej_add.cu",
+    "msm_table": "secp256k1_zkp_tpu_torch/csrc/msm_table.cu",
+    "msm_winreduce": "secp256k1_zkp_tpu_torch/csrc/msm_winreduce.cu",
+    "msm_finish": "secp256k1_zkp_tpu_torch/csrc/msm_finish.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_digits", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_digits",
                    "ecmult_glv", "schnorr_check")
 SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded")
+MSM_KERNELS = ("gej_add", "msm_table", "msm_winreduce", "msm_finish")
+# the collapse of msm_finish's lanes: one gej_add launch a halving level
+COLLAPSE_LEVELS = cuda_msm.FINISH_LANES.bit_length() - 1
+MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
 # RFC6979 with two candidates: four HMACs to seed the DRBG and three per
 # candidate, each HMAC two one-block compressions of the key block and two
 # hashes (inner, outer) of one launch each
@@ -187,7 +224,24 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          "schnorr_sign": {"fixedbase_digits": 2, "affine_xy": 2,
                           "sha256": 3, "muladd_n": 1},
          "schnorr_sign_blinded": {"fixedbase_blinded": 2, "affine_xy": 2,
-                                  "sha256": 3, "muladd_n": 1}}
+                                  "sha256": 3, "muladd_n": 1},
+         # BIP-340 batch verify of n signatures: the tagged hashes of the
+         # challenges, the leaves, each of the ceil(log2 n) node levels and
+         # the randomizers; the lifts of P and R; z*e and z*s; two MSMs
+         # (table, window reduce, finish, the collapse's gej_add levels);
+         # rhs = one more gej_add; (sum z s)*G by the comb
+         "schnorr_batch": lambda n: {
+             "sha256": 3 + (n - 1).bit_length(), "lift_x": 2,
+             "muladd_n": 2, "fixedbase_digits": 1, "msm_table": 2,
+             "msm_winreduce": 2, "msm_finish": 2,
+             "gej_add": 2 * COLLAPSE_LEVELS + 1},
+         "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1,
+                 "gej_add": COLLAPSE_LEVELS}}
+
+
+def path_launches(path: str, lanes: int) -> dict:
+    want = PATHS[path]
+    return want(lanes) if callable(want) else want
 
 
 def emit(phase: str, **kw) -> None:
@@ -234,15 +288,40 @@ def profile_call(fn):
     return wall, dev_ms, len(kern), [[k, n, ms] for k, (n, ms) in top]
 
 
+def bound_of(madds: float, nbytes: float):
+    """Least time in ms for ``madds`` 32-bit multiply-adds and ``nbytes``
+    of traffic, and what sets it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = madds * 2 / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def bound_ms(name: str, lanes: int, chain: int = 1):
     """Least time for ``lanes`` lanes of kernel ``name`` (``chain``
     multiplies a lane for mulmod_chain, blocks a lane for sha256), and
     what sets it."""
     words = WORDS[name] + (16 * chain if name == "sha256" else 0)
-    t_bytes = words * 4 * lanes / PEAK_BYTES_PER_S
-    t_ops = OPS[name] * chain * 2 * lanes / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    return bound_of(OPS[name] * chain * lanes, words * 4 * lanes)
+
+
+def msm_bound(name: str, t: dict):
+    """Least time of one MSM-engine launch on the operands ``t``, from
+    what this run's data needs (module docstring)."""
+    if name == "msm_winreduce":
+        nwin, lanes = t["digs"].shape
+        nnz = int(((t["digs"] != 0) & ~t["pinf"][None, :]).sum())
+        parts = nwin * t["nblk"]
+        return bound_of(nnz * OPS[name],
+                        4 * (lanes * (15 * 16 + 1) + nwin * lanes
+                             + parts * 49))
+    if name == "msm_finish":
+        parts, lanes = t["x"].shape[1], cuda_msm.FINISH_LANES
+        return bound_of(lanes * t["nwin"] * OPS[name] + parts * ADD_JAC,
+                        4 * 49 * (parts + lanes))
+    if name == "gej_add":
+        return bound_ms(name, t["a"][0].shape[1])
+    return bound_ms(name, t["px"].shape[1])
 
 
 # --- host-built signatures --------------------------------------------------
@@ -394,7 +473,8 @@ def _i32(x: int) -> bytes:
 def make_schnorr_distinct(distinct: int, seed: int):
     """``distinct`` valid BIP-340 signatures built on the host with Python
     ints and hashlib: (msgs, sigs, x-only keys, a signature right but for
-    its R's odd y with its msg and key)."""
+    its R's odd y with its msg and key, the secrets (d, k) with even-y
+    points behind each signature)."""
     comb = _comb_ints()
     rng = np.random.default_rng(seed + 1)
     seedb = rng.bytes(32)
@@ -412,9 +492,11 @@ def make_schnorr_distinct(distinct: int, seed: int):
     sigs = np.zeros((distinct, 64), np.uint8)
     pxs = np.zeros((distinct, 32), np.uint8)
     odd_r = None
+    secrets = []
     for i in range(distinct):
         d = ds[i] if Pa[i][1] % 2 == 0 else hc.N - ds[i]
         k = ks[i] if Ra[i][1] % 2 == 0 else hc.N - ks[i]
+        secrets.append((d, k))
         r32, px32, msg = _i32(Ra[i][0]), _i32(Pa[i][0]), bytes(msgs[i])
         s = (k + _challenge(r32, px32, msg) * d) % hc.N
         sigs[i] = np.frombuffer(r32 + _i32(s), np.uint8)
@@ -423,7 +505,7 @@ def make_schnorr_distinct(distinct: int, seed: int):
             # the nonce left unnegated: s*G - e*P is R itself, odd y
             s_odd = (ks[i] + _challenge(r32, px32, msg) * d) % hc.N
             odd_r = (msg, r32 + _i32(s_odd), px32)
-    return msgs, sigs, pxs, odd_r
+    return msgs, sigs, pxs, odd_r, secrets
 
 
 def _not_on_curve_x() -> int:
@@ -441,7 +523,7 @@ def make_schnorr_batch(base, lanes: int):
     and edge lanes: key x not on the curve, x >= p, r >= p, s >= n, s = 0,
     R with odd y, and the five BIP-340 verify vectors.  Returns (msg32,
     sig64, px32 on the CPU, expected mask)."""
-    msgs, sigs, pxs, odd_r = base
+    msgs, sigs, pxs, odd_r, _ = base
     reps = -(-lanes // len(msgs))
     msgs = np.tile(msgs, (reps, 1))[:lanes].copy()
     sigs = np.tile(sigs, (reps, 1))[:lanes].copy()
@@ -480,6 +562,107 @@ def make_schnorr_batch(base, lanes: int):
             bytes.fromhex(pk), ok)
     return (torch.from_numpy(msgs), torch.from_numpy(sigs),
             torch.from_numpy(pxs), expect)
+
+
+# --- batch verification: batches, verdicts and the right-hand point -------
+
+
+def host_randomizers(msgs, sigs, pxs):
+    """The batch randomizers z_i with ``hashlib`` (zero seed): leaf hashes
+    of pk || msg || sig, a tree of node hashes with a zero node padding each
+    odd level, z_i = H_tag(seed || root || i) mod 2^128, z_0 = 1."""
+    nodes = [_tagged("BIP0340/batch/leaf", p.tobytes() + m.tobytes()
+                     + s.tobytes()) for p, m, s in zip(pxs, msgs, sigs)]
+    while len(nodes) > 1:
+        if len(nodes) % 2:
+            nodes.append(bytes(32))
+        nodes = [_tagged("BIP0340/batch/node", a + b)
+                 for a, b in zip(nodes[::2], nodes[1::2])]
+    pre = bytes(32) + nodes[0]
+    z = [int.from_bytes(_tagged("BIP0340/batch", pre + i.to_bytes(4, "big")),
+                        "big") % (1 << 128) for i in range(len(msgs))]
+    z[0] = 1
+    return z
+
+
+def make_batch_verify(base, lanes: int):
+    """Batches of ``lanes`` BIP-340 signatures tiled from ``base``: the valid
+    one and one broken in each way (a flipped s byte, a flipped message
+    byte, a key x off the curve, r >= p, and the two-lane cancellation
+    forgery s_0 += z_1 t, s_1 -= t with z of the valid batch), as
+    {label: (msg32, sig64, px32 on the CPU)}, and the point the valid
+    batch's right-hand side must be, (sum z_i k_i + z_i e_i d_i) * G, from
+    Python ints and ``hashlib``."""
+    msgs, sigs, pxs, _, secrets = base
+    msgs, sigs, pxs = (_tile(a, lanes) for a in (msgs, sigs, pxs))
+    z = host_randomizers(msgs, sigs, pxs)
+    acc = 0
+    for i in range(lanes):
+        d, k = secrets[i % len(secrets)]
+        e = _challenge(sigs[i, :32].tobytes(), pxs[i].tobytes(),
+                       msgs[i].tobytes())
+        acc += z[i] * (k + e * d)
+    rhs = hc.mul(acc % hc.N)
+    out = {"valid": (msgs, sigs, pxs)}
+
+    def broken(label, lane, fn):
+        m, s, p = msgs.copy(), sigs.copy(), pxs.copy()
+        fn(m, s, p, lane)
+        out[label] = (m, s, p)
+
+    def flip_s(m, s, p, j):
+        s[j, 40] ^= 1
+
+    def flip_msg(m, s, p, j):
+        m[j, 0] ^= 1
+
+    def off_curve(m, s, p, j):
+        p[j] = np.frombuffer(_i32(_not_on_curve_x()), np.uint8)
+
+    def r_ge_p(m, s, p, j):
+        r = hc.P + int.from_bytes(s[j, :32].tobytes(), "big") \
+            % (2 ** 256 - hc.P)
+        s[j, :32] = np.frombuffer(_i32(r), np.uint8)
+
+    def forgery(m, s, p, j):
+        t = 0xDEADBEEF
+        s0 = int.from_bytes(sigs[j, 32:].tobytes(), "big")
+        s1 = int.from_bytes(sigs[j + 1, 32:].tobytes(), "big")
+        s[j, 32:] = np.frombuffer(_i32((s0 + z[j + 1] * t) % hc.N), np.uint8)
+        s[j + 1, 32:] = np.frombuffer(_i32((s1 - t) % hc.N), np.uint8)
+
+    for label, lane, fn in (("flipped s byte", lanes // 2, flip_s),
+                            ("flipped msg", lanes - 1, flip_msg),
+                            ("key x off the curve", 3, off_curve),
+                            ("r >= p", 5, r_ge_p), ("forgery", 0, forgery)):
+        broken(label, lane, fn)
+    return {k: tuple(torch.from_numpy(a) for a in v)
+            for k, v in out.items()}, rhs
+
+
+def make_msm(points: int, seed: int, dev):
+    """``points`` points P_i = a_i * G made on the card by the comb and
+    ``affine_xy`` (one of them infinite), 256-bit scalars k_i (one 0, a few
+    with zero digits), and the sum (sum k_i a_i mod n) * G in Python ints.
+    Returns (ks ``LB``, pts ``GE`` on the card, affine sum)."""
+    rng = np.random.default_rng(seed + 4)
+    a = rng.integers(0, 1 << 16, (points, 16), dtype=np.int64)
+    a[:, 15] &= 0x7FFF                       # a_i < 2^255 < n
+    k = rng.integers(0, 1 << 16, (points, 16), dtype=np.int64)
+    k[: points // 8, 3] &= 0xF00F            # zero digits
+    k[1] = 0
+    inf = 2
+    ax, ay = cuda_gen.affine_xy(*cuda_gen.ecmult_gen(
+        torch.from_numpy(a.T.astype(np.int32)).to(dev).contiguous()))
+    pinf = torch.zeros(points, dtype=torch.bool, device=dev)
+    pinf[inf] = True
+    pts = GE(ecdsa.from_rows(ax), ecdsa.from_rows(ay), pinf)
+    ai = [int.from_bytes(r.astype("<u2").tobytes(), "little") for r in a]
+    ki = [int.from_bytes(r.astype("<u2").tobytes(), "little") for r in k]
+    want = sum(kk * aa for i, (kk, aa) in enumerate(zip(ki, ai))
+               if i != inf) % hc.N
+    return (LB(torch.from_numpy(k).to(dev), MASK16), pts,
+            hc.mul(want) if want else None)
 
 
 # --- host-made signatures: what the sign paths must return ------------------
@@ -754,22 +937,77 @@ def sign_inputs(msgs, secs, blind, dev):
     return t
 
 
-def sha_operands(fn):
-    """The (state, blocks) rows of every SHA-256 kernel launch that
-    ``fn()`` makes, caught at the kernel's wrapper (the kernel still
-    runs), as tensor sets for :func:`compare`."""
-    seen, real = [], cuda_sha256.sha256_blocks
+def catch(fn, targets):
+    """Run ``fn()`` with each ``(module, attribute)`` of ``targets``
+    ({name: (module, attribute)}) wrapped to record its calls — the real
+    function still runs, so nothing extra is launched.  Returns (fn's
+    result, {name: [(args, result), ...]})."""
+    seen = {name: [] for name in targets}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in
+            targets.items()}
 
-    def spy(state, blocks):
-        seen.append(dict(sha_state=state.clone(), sha_blocks=blocks.clone()))
-        return real(state, blocks)
+    def spy(name):
+        def call(*args):
+            out = real[name](*args)
+            seen[name].append((args, out))
+            return out
+        return call
 
-    cuda_sha256.sha256_blocks = spy
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, spy(name))
     try:
-        fn()
+        out = fn()
     finally:
-        cuda_sha256.sha256_blocks = real
-    return seen
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, real[name])
+    return out, seen
+
+
+# where the batch-verify and MSM paths call their kernel wrappers
+MSM_TARGETS = {"msm_table": (cuda_msm, "msm_table"),
+               "msm_winreduce": (cuda_msm, "msm_winreduce"),
+               "msm_finish": (cuda_msm, "msm_finish"),
+               "gej_add": (cuda_msm, "gej_add"),
+               "gej_add_rhs": (cuda_group, "gej_add")}
+SHA_TARGETS = {"sha256": (cuda_sha256, "sha256_blocks")}
+BATCH_TARGETS = {**MSM_TARGETS, **SHA_TARGETS,
+                 "lift_x": (cuda_field, "lift_x"),
+                 "muladd_n": (cuda_gen, "muladd_n"),
+                 "fixedbase_digits": (cuda_gen, "fixedbase_digits")}
+
+
+def msm_sets(seen):
+    """The operands of every launch caught by :func:`catch`, as tensor
+    sets for :func:`compare`, by kernel; and the 64-lane collapse operands
+    with P + P, P + (-P) and infinity lanes mixed in."""
+    sets = {k: [] for k in (*MSM_KERNELS, "sha256", "lift_x", "muladd_n",
+                            "fixedbase_digits")}
+    for (state, blocks), _ in seen.get("sha256", []):
+        sets["sha256"].append(dict(sha_state=state, sha_blocks=blocks))
+    for (px,), _ in seen.get("lift_x", []):
+        sets["lift_x"].append(dict(px=px))
+    for (k, e, d, neg), _ in seen.get("muladd_n", []):
+        sets["muladd_n"].append(dict(k=k, e=e, d=d, neg=neg))
+    for (gdigs,), _ in seen.get("fixedbase_digits", []):
+        sets["fixedbase_digits"].append(dict(gdigs=gdigs))
+    for (px, py, pinf), _ in seen["msm_table"]:
+        sets["msm_table"].append(dict(px=px, py=py, pinf=pinf))
+    for (digs, tab, pinf, nblk), _ in seen["msm_winreduce"]:
+        sets["msm_winreduce"].append(dict(digs=digs, tab=tab, pinf=pinf,
+                                          nblk=nblk, nwin=digs.shape[0]))
+    for (x, y, z, inf, nwin), _ in seen["msm_finish"]:
+        sets["msm_finish"].append(dict(x=x, y=y, z=z, inf=inf, nwin=nwin))
+    for (a, b), _ in seen["gej_add"] + seen["gej_add_rhs"]:
+        sets["gej_add"].append(dict(a=a, b=b))
+    # degenerate adds on the widest collapse operand: b = a (doubling) on
+    # even lanes, b = -a on odd lanes, infinity on every fifth
+    a = sets["gej_add"][0]["a"]
+    x, y, z, inf = (t.clone() for t in a)
+    y[:, 1::2] = cuda_field._neg_canon(y[:, 1::2].to(torch.int64)) \
+        .to(y.dtype)
+    inf[::5] = True
+    sets["gej_add"].append(dict(a=a, b=(x, y, z, inf)))
+    return sets
 
 
 def ssign_inputs(msgs, secs, auxs, dev):
@@ -832,8 +1070,29 @@ def run_pair(name, t, use_ref: bool):
         f = (cuda_gen.fixedbase_digits_ref if use_ref
              else cuda_gen.fixedbase_digits)
         return f(t["bdigs"], t["gb"])
+    if name == "gej_add":
+        f = cuda_group.gej_add_ref if use_ref else cuda_group.gej_add
+        return f(t["a"], t["b"])
+    if name == "msm_table":
+        f = cuda_msm.msm_table_ref if use_ref else cuda_msm.msm_table
+        return (f(t["px"], t["py"], t["pinf"]),)
+    if name == "msm_winreduce":
+        f = cuda_msm.msm_winreduce_ref if use_ref else cuda_msm.msm_winreduce
+        return f(t["digs"], t["tab"], t["pinf"], t["nblk"])
+    if name == "msm_finish":
+        f = cuda_msm.msm_finish_ref if use_ref else cuda_msm.msm_finish
+        return f(t["x"], t["y"], t["z"], t["inf"], t["nwin"])
     f = cuda_field.schnorr_check_ref if use_ref else cuda_field.schnorr_check
     return (f(*t["R"], t["rx"]),)
+
+
+# results compared as points, made affine: each window's partials summed
+# (their jacobian form depends on the order of the additions), and each
+# finish lane on its own
+AS_POINTS = {
+    "msm_winreduce": lambda out, t: cuda_msm.points_affine(*out, t["nwin"]),
+    "msm_finish": lambda out, t: cuda_msm.points_affine(
+        *out, cuda_msm.FINISH_LANES)}
 
 
 def compare(name, t):
@@ -846,6 +1105,8 @@ def compare(name, t):
     plain_ms = (time.perf_counter() - t1) * 1e3
     got = run_pair(name, t, use_ref=False)
     torch.cuda.synchronize()
+    if name in AS_POINTS:
+        got, want = AS_POINTS[name](got, t), AS_POINTS[name](want, t)
     err = 0
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.is_cuda and w.is_cuda
@@ -908,6 +1169,8 @@ def main() -> int:
     gsbase = make_ssign_distinct(distinct, args.seed)
     gbatches = {n: make_sign_batch(gbase, n) for n in (*sizes, ragged)}
     gsbatches = {n: make_ssign_batch(gsbase, n) for n in (*sizes, ragged)}
+    # batch verification reuses the distinct BIP-340 signatures, tiled
+    bbatches = {n: make_batch_verify(sbase, n) for n in (*sizes, ragged)}
     emit("data", seconds=round(time.time() - t0, 2),
          lanes=sorted(batches), distinct=distinct)
     # the blinding of the sign paths, from the seed (Context creation runs
@@ -947,6 +1210,7 @@ def main() -> int:
             torch.zeros((1, 32), dtype=torch.uint8, device=dev))))
     err, plain_ms = compare("sha256", sha_selftest)
     record("sha256", "selftest shape [8, 1], 1 block", err, plain_ms)
+    btensors = {}                 # the MSM kernels' operands, for timing
     for n in (*sizes, ragged):
         for name in ("mulmod_chain", *ECDSA_KERNELS):
             err, plain_ms = compare(name, tensors[n])
@@ -983,15 +1247,43 @@ def main() -> int:
         # tagged hashes from their midstates), caught from one call each
         msgs, secs = gbatches[n][:2]
         smsgs, ssecs, sauxs = gsbatches[n][:3]
-        sha_sets = sha_operands(lambda: ecdsa.sign(msgs, secs, device=dev))
-        sha_sets += sha_operands(lambda: schnorrsig.sign(
-            smsgs, ssecs, sauxs, device=dev))
+        sha_sets = []
+        for call in (lambda: ecdsa.sign(msgs, secs, device=dev),
+                     lambda: schnorrsig.sign(smsgs, ssecs, sauxs,
+                                             device=dev)):
+            _, seen = catch(call, SHA_TARGETS)
+            sha_sets += [dict(sha_state=state, sha_blocks=blocks)
+                         for (state, blocks), _ in seen["sha256"]]
         checks = [compare("sha256", t) for t in sha_sets]
         most = max(t["sha_blocks"].shape[0] // 16 for t in sha_sets)
         record("sha256", f"{n} lanes, sign paths: {len(sha_sets)} launches "
                f"of 1-{most} blocks", max(e for e, _ in checks),
                sum(ms for _, ms in checks))
         del sha_sets
+        # batch verify: every kernel of the path on the operands of one
+        # call, caught at the wrappers — both MSMs (128- and 256-bit
+        # scalars), the 14 collapse levels and the rhs add, the hashes
+        # (leaves, node levels, randomizers, challenges), the lifts, z*e
+        # and z*s, and (sum z s)*G
+        _, seen = catch(lambda: schnorrsig.batch_verify(
+            *bbatches[n][0]["valid"], device=dev), BATCH_TARGETS)
+        bsets = msm_sets(seen)
+        del seen
+        for name, tsets in bsets.items():
+            checks = [compare(name, t) for t in tsets]
+            record(name, f"{n} lanes, batch verify: {len(checks)} launches",
+                   max(e for e, _ in checks), sum(ms for _, ms in checks))
+            if name in MSM_KERNELS:
+                # read at the 256-bit MSM's launch (the 64-lane collapse
+                # level for gej_add)
+                plain_ms = checks[0 if name == "gej_add" else 1][1]
+                if n == sizes[0]:
+                    results[name]["plain_ms"] = plain_ms
+                elif n in sizes:
+                    results[name][f"plain_ms_{n}"] = plain_ms
+        if n in sizes:
+            btensors[n] = {k: bsets[k] for k in MSM_KERNELS}
+        del bsets
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -1003,12 +1295,12 @@ def main() -> int:
     launches = {k: 0 for k in MAIN_PATH_KERNELS}
     by_path = {p: {k: 0 for k in MAIN_PATH_KERNELS} for p in PATHS}
 
-    def counted(path, fn):
+    def counted(path, fn, lanes=None):
         _build.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         got = dict(_build.LAUNCH_COUNTS)
-        want = {k: PATHS[path].get(k, 0) for k in got}
+        want = {k: path_launches(path, lanes).get(k, 0) for k in got}
         if got != want:
             raise SystemExit(f"{path}: launches {got}, expected {want}")
         for k, v in got.items():
@@ -1087,6 +1379,56 @@ def main() -> int:
             raise SystemExit(f"schnorr sign wrong at {n} lanes: {wrong} "
                              f"against the host, {unverified} not verified, "
                              f"{blind_diff} changed by the blinding")
+    def affine_ints(r):
+        """0-d GEJ -> affine Python ints, None at infinity."""
+        a = G.ge_from_gej(r)
+        if bool(a.inf):
+            return None
+        return tuple(sum(int(v) << (16 * i) for i, v in
+                         enumerate(c.v.tolist())) for c in (a.x, a.y))
+
+    for n in sizes:
+        cases, rhs_want = bbatches[n]
+        verdicts = {}
+        for label, inputs in cases.items():
+            ok, seen = catch(lambda: counted(
+                "schnorr_batch", lambda: schnorrsig.batch_verify(
+                    *inputs, device=dev), n), {"rhs": (G, "gej_add")})
+            assert ok.shape == () and ok.dtype == torch.bool and ok.is_cuda
+            verdicts[label] = bool(ok)
+            if label == "valid":
+                rhs_ok = affine_ints(seen["rhs"][0][1]) == rhs_want
+        wrong = [k for k, v in verdicts.items() if v != (k == "valid")]
+        emit("main_path", path="schnorr_batch", lanes=n, verdicts=verdicts,
+             rhs_matches_host=rhs_ok,
+             launches=path_launches("schnorr_batch", n))
+        if wrong or not rhs_ok:
+            raise SystemExit(f"batch verify wrong at {n} lanes: verdicts "
+                             f"{wrong}, rhs right: {rhs_ok}")
+    t0 = time.time()
+    mks, mpts, msm_want = make_msm(MSM_POINTS, args.seed, dev)
+    msm_data_s = time.time() - t0
+    rsum, seen = catch(lambda: counted("msm", lambda: msm.ecmult_multi(
+        mks, mpts, device=dev)), MSM_TARGETS)
+    msets = {k: v for k, v in msm_sets(seen).items() if k in MSM_KERNELS}
+    del seen
+    msm_ok = affine_ints(rsum) == msm_want
+    emit("main_path", path="msm", points=MSM_POINTS, matches_host=msm_ok,
+         data_seconds=round(msm_data_s, 2), launches=PATHS["msm"])
+    if not msm_ok:
+        raise SystemExit(f"ecmult_multi of {MSM_POINTS} points is wrong")
+    # the engine's kernels against their plain versions on the operands of
+    # that call (after its counts were read)
+    for name, tsets in msets.items():
+        checks = [compare(name, t) for t in tsets]
+        record(name, f"{MSM_POINTS} points, msm: {len(checks)} launches",
+               max(e for e, _ in checks), sum(ms for _, ms in checks))
+        # the one launch; the widest collapse level for gej_add
+        results[name][f"plain_ms_{MSM_POINTS}"] = checks[0][1]
+    bad = [k for k in MSM_KERNELS if not results[k]["match"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions at "
+                         f"{MSM_POINTS} points: {bad}")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
     if idle:
         raise SystemExit(f"main path never launched: {idle}")
@@ -1128,13 +1470,50 @@ def main() -> int:
                                          bound_by=b_by)
                 emit("timing", name=pre + name, lanes=n, ms=ms,
                      bound_ms=b_ms, bound_by=b_by, lanes_per_s=n / ms * 1e3)
+    # the MSM engine: the 256-bit MSM's launch of each kernel (the widest
+    # collapse level for gej_add) at both batch-verify sizes and on the
+    # 2^20-point MSM; the 128-bit MSM's launches beside them
+    for name in MSM_KERNELS:
+        for n, tsets in ((sizes[0], btensors[sizes[0]]),
+                         (sizes[1], btensors[sizes[1]]),
+                         (MSM_POINTS, msets)):
+            picks = [("", tsets[name][0])]
+            if name != "gej_add" and n in sizes:
+                picks = [("", tsets[name][1]), ("128bit_", tsets[name][0])]
+            for pre, t in picks:
+                ms = time_ms(lambda: run_pair(name, t, False))
+                b_ms, b_by = msm_bound(name, t)
+                results[name][f"{pre}ms_{n}"] = ms
+                results[name][f"{pre}bound_ms_{n}"] = b_ms
+                lanes = t["a"][0].shape[1] if name == "gej_add" else n
+                if n == sizes[0] and not pre:
+                    results[name].update(ms=ms, lanes=lanes, bound_ms=b_ms,
+                                         bound_by=b_by)
+                emit("timing", name=pre + name, points=n, lanes=lanes, ms=ms,
+                     bound_ms=b_ms, bound_by=b_by)
+    # msm_winreduce's lane chunks (cuda_msm.winreduce_blocks): the chosen
+    # nblk against a quarter of it up to four times it, same operands
+    for n, t in ((sizes[0], btensors[sizes[0]]["msm_winreduce"][1]),
+                 (MSM_POINTS, msets["msm_winreduce"][0])):
+        lanes, sweep = t["digs"].shape[1], {}
+        for f in (0.25, 0.5, 1, 2, 4):
+            chunk = -(-lanes // max(1, round(t["nblk"] * f)))
+            nblk = -(-lanes // chunk)
+            sweep[nblk] = time_ms(lambda: cuda_msm.msm_winreduce(
+                t["digs"], t["tab"], t["pinf"], nblk))
+        emit("timing", name="msm_winreduce_nblk", points=n,
+             chosen=t["nblk"], ms_by_nblk=sweep)
     # whole calls: (name, entry point, batches, tensor arguments, rate key)
     calls = (("ecdsa.verify", ecdsa.verify, batches, 3, "verifies_per_s"),
              ("schnorr.verify", schnorrsig.verify, sbatches, 3,
               "verifies_per_s"),
              ("ecdsa.sign", ecdsa.sign, gbatches, 2, "signatures_per_s"),
              ("schnorr.sign", schnorrsig.sign, gsbatches, 3,
-              "signatures_per_s"))
+              "signatures_per_s"),
+             ("schnorr.batch_verify", schnorrsig.batch_verify,
+              {n: bbatches[n][0]["valid"] for n in sizes}, 3,
+              "verifies_per_s"))
+    rates = {}
     for label, entry, data, nargs, rate in calls:
         for n in sizes:
             on_dev = [x.to(dev) for x in data[n][:nargs]]
@@ -1150,6 +1529,7 @@ def main() -> int:
                 whole()
                 walls.append((time.perf_counter() - t1) * 1e3)
             ms = float(np.median(walls))
+            rates[label, n] = n / ms * 1e3
             emit("timing", name=label, lanes=n, ms=ms,
                  **{rate: n / ms * 1e3})
             # where the call's time goes: the card's kernels, by name
@@ -1157,6 +1537,31 @@ def main() -> int:
             emit("profile", name=label, lanes=n,
                  profiled_wall_ms=wall, device_ms=dev_ms, kernels=nkern,
                  device_busy_share=dev_ms / ms, top=top)
+
+    for n in sizes:
+        emit("timing", name="batch_vs_single", lanes=n,
+             batch_verifies_per_s=rates["schnorr.batch_verify", n],
+             verify_verifies_per_s=rates["schnorr.verify", n],
+             ratio=rates["schnorr.batch_verify", n]
+             / rates["schnorr.verify", n])
+
+    def whole_msm():
+        msm.ecmult_multi(mks, mpts, device=dev)
+        torch.cuda.synchronize()
+
+    whole_msm()
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        whole_msm()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    ms = float(np.median(walls))
+    emit("timing", name="ecmult_multi", points=MSM_POINTS, ms=ms,
+         points_per_s=MSM_POINTS / ms * 1e3)
+    wall, dev_ms, nkern, top = profile_call(whole_msm)
+    emit("profile", name="ecmult_multi", points=MSM_POINTS,
+         profiled_wall_ms=wall, device_ms=dev_ms, kernels=nkern,
+         device_busy_share=dev_ms / ms, top=top)
 
     emit("total", seconds=round(time.time() - t_start, 1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

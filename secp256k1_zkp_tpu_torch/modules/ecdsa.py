@@ -21,7 +21,7 @@ from ..ops import field as F
 from ..ops import scalar as S
 from ..ops import sha256 as H
 from ..ops.group import GE
-from ..ops.limb import LB, MASK16
+from ..ops.limb import from_rows, kernel_rows
 
 
 def sig_parse_compact(sig64: torch.Tensor):
@@ -30,16 +30,6 @@ def sig_parse_compact(sig64: torch.Tensor):
     r, rovf = S.from_bytes_be(sig64[..., :32])
     s, sovf = S.from_bytes_be(sig64[..., 32:])
     return r, s, ~rovf & ~sovf
-
-
-def kernel_rows(a: LB) -> torch.Tensor:
-    """``[B, 16]`` int64 limbs -> the kernels' ``[16, B]`` int32 operand."""
-    return a.v.T.to(torch.int32).contiguous()
-
-
-def from_rows(t: torch.Tensor) -> LB:
-    """The kernels' ``[16, B]`` int32 limbs -> ``[B, 16]`` int64 ``LB``."""
-    return LB(t.T.to(torch.int64).contiguous(), MASK16)
 
 
 def verify(msg32, sig64, pub: GE, device="cuda"):

@@ -5,11 +5,14 @@ Counterpart of the JAX package's ``modules/schnorrsig.py``: ``lift_x``,
 ``verify``, modules/schnorrsig/main_impl.h:215 in the reference),
 ``keypair_xonly`` and ``sign`` (the kernel pipelines of
 ``keypair_xonly_tpu`` and ``sign_tpu``: the BIP-340 default nonce
-function with its tagged hashes, main_impl.h:16-92 and :122).
-``batch_verify`` waits for the MSM slice.
+function with its tagged hashes, main_impl.h:16-92 and :122), and
+``batch_verify`` (the kernel pipeline of ``batch_verify_tpu``: one
+randomized equation over the whole batch, its two multi-scalar
+multiplications on the MSM engine of ``ops/cuda_msm.py``).
 
 Batched-first: byte tensors are ``[B, 32]`` / ``[B, 64]`` uint8; the result
-is a per-lane ``ok`` mask.
+is a per-lane ``ok`` mask (one bool for the whole batch in
+``batch_verify``).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch
 from ..config import resolve_device
 from ..ops import cuda_field, cuda_gen, cuda_group, cuda_scalar
 from ..ops import field as F
+from ..ops import group as G
 from ..ops import scalar as S
 from ..ops import sha256 as H
-from ..ops.group import GE
-from .ecdsa import from_rows, kernel_rows
+from ..ops.cuda_msm import msm_windowed
+from ..ops.group import GE, GEJ
+from ..ops.limb import LB, MASK16, from_rows, kernel_rows
 
 
 def lift_x(px32, device="cuda"):
@@ -155,3 +160,105 @@ def sign(msg32, sec32, aux32=None, blind=None, device="cuda"):
                             kernel_rows(d_even), (ya[0] & 1) == 1)
     sig64 = torch.cat([rx32, S.to_bytes_be(from_rows(s_t))], -1)
     return sig64 * ok[:, None], ok
+
+
+# ---------------------------------------------------------------------------
+# Batch verification
+# ---------------------------------------------------------------------------
+
+
+def _batch_digest(msgs32, sigs64, pxs32, n):
+    """One 32-byte digest binding every batch input (each pk_i, msg_i and
+    the whole sig_i): tagged leaf hashes of pk || msg || sig, then a binary
+    tree of ``BIP0340/batch/node`` hashes, a zero node padding each odd
+    level.  One SHA-256 launch for the leaves and one per level on a
+    card."""
+    nodes = H.words_to_bytes32(H.tagged_hash_bytes(
+        "BIP0340/batch/leaf", torch.cat([pxs32, msgs32, sigs64], -1)))
+    k = n
+    while k > 1:
+        if k % 2:
+            nodes = torch.cat([nodes, nodes.new_zeros((1, 32))], 0)
+            k += 1
+        nodes = H.words_to_bytes32(H.tagged_hash_bytes(
+            "BIP0340/batch/node", nodes.reshape(k // 2, 64)))
+        k //= 2
+    return nodes[0]
+
+
+def _batch_randomizers(msgs32, sigs64, pxs32, seed32, n):
+    """The 128-bit randomizers z_i = H_tag("BIP0340/batch", seed || root
+    || i) mod 2^128, z_0 = 1, with root = :func:`_batch_digest` of the
+    whole batch (so no z_i is known before every signature is fixed);
+    ``seed32`` None means 32 zero bytes.  Returns a canonical ``LB``."""
+    dev = msgs32.device
+    seed32 = (torch.zeros(32, dtype=torch.uint8, device=dev) if seed32 is None
+              else seed32)
+    root = _batch_digest(msgs32, sigs64, pxs32, n)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    i_b = torch.stack([(idx >> sh) & 0xFF for sh in (24, 16, 8, 0)],
+                      -1).to(torch.uint8)
+    zmsg = torch.cat([seed32.expand(n, 32), root.expand(n, 32), i_b], -1)
+    z, _ = S.from_bytes_be(H.words_to_bytes32(
+        H.tagged_hash_bytes("BIP0340/batch", zmsg)))
+    zv = z.v.clone()
+    zv[:, 8:] = 0                            # truncate to 128 bits
+    zv[0] = 0
+    zv[0, 0] = 1                             # z_0 = 1
+    return LB(zv, MASK16)
+
+
+def batch_verify(msgs32, sigs64, pxs32, seed32=None, device="cuda"):
+    """All-or-nothing BIP-340 batch verification by one random linear
+    combination:
+
+        (sum_i z_i s_i) * G  ==  sum_i z_i R_i + sum_i (z_i e_i) P_i
+
+    with the 128-bit randomizers of :func:`_batch_randomizers`.  msgs32
+    ``[n, 32]``, sigs64 ``[n, 64]``, pxs32 ``[n, 32]`` uint8, seed32 None or
+    32 bytes; returns a 0-d bool tensor on ``device`` (default
+    ``"cuda"``, which raises when there is no card): True iff every
+    signature is valid, except with negligible probability.  Any r >= p,
+    s >= n, px >= p or failed lift rejects the batch.  n = 0 is refused,
+    as the JAX function refuses it (its digest indexes the empty tree).
+
+    The steps of ``batch_verify_tpu``: ``lift_x`` of the P_i and R_i; the
+    challenges, the leaf, node and randomizer hashes (one SHA-256 launch
+    each, a node level per launch); z*e and z*s by ``muladd_n``; sum z*s
+    mod n as one column sum (exact in int64 for any n up to 2^47); two
+    MSMs — sum z R with 128-bit scalars, sum (z e) P with 256-bit — on the
+    MSM engine (failed lifts are infinite lanes); their sum by
+    ``gej_add``; (sum z s)*G by the comb; projective equality."""
+    dev = resolve_device(device)
+    msgs32 = _batch_of(msgs32, dev)
+    sigs64 = _batch_of(sigs64, dev)
+    pxs32 = _batch_of(pxs32, dev)
+    n = msgs32.shape[0]
+    if n == 0:
+        raise ValueError("batch_verify needs at least one signature")
+    if seed32 is not None:
+        seed32 = torch.as_tensor(seed32, dtype=torch.uint8).to(dev) \
+            .reshape(32)
+    rx, rx_ovf = F.from_bytes_be(sigs64[:, :32])
+    s, s_ovf = S.from_bytes_be(sigs64[:, 32:])
+    pkx, pkx_ovf = F.from_bytes_be(pxs32)
+    py, p_ok = cuda_field.lift_x(kernel_rows(pkx))
+    ry, r_ok = cuda_field.lift_x(kernel_rows(rx))
+    ok = (p_ok & r_ok & ~rx_ovf & ~s_ovf & ~pkx_ovf).all()
+
+    e = challenge(sigs64[:, :32], pxs32, msgs32)
+    z = _batch_randomizers(msgs32, sigs64, pxs32, seed32, n)
+    z_t = kernel_rows(z)
+    zeros = torch.zeros_like(z_t)
+    no_neg = torch.zeros(n, dtype=torch.bool, device=dev)
+    ze_t = cuda_gen.muladd_n(zeros, kernel_rows(S.normalize(e)), z_t, no_neg)
+    zs_t = cuda_gen.muladd_n(zeros, kernel_rows(s), z_t, no_neg)
+    ssum = cuda_scalar.canon_n(cuda_scalar.reduce_cols_n(
+        zs_t.to(torch.int64).sum(1, keepdim=True)))
+
+    rhs = G.gej_add(msm_windowed(z, GE(rx, from_rows(ry), ~r_ok), 128),
+                    msm_windowed(from_rows(ze_t),
+                                 GE(pkx, from_rows(py), ~p_ok), 256))
+    lx, ly, lz = cuda_gen.ecmult_gen(ssum.to(torch.int32))
+    lhs = GEJ(*(from_rows(t, ()) for t in (lx, ly, lz)), (lz[:, 0] == 0).all())
+    return ok & G.gej_eq(lhs, rhs)

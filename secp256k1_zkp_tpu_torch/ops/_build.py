@@ -49,6 +49,10 @@ _SIGNATURES = {
     "secp_ecdsa_finish": [_VP] * 9 + [_INT, _VP],
     "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
+    "secp_gej_add": [_VP] * 12 + [_INT, _VP],
+    "secp_msm_table": [_VP] * 4 + [_INT, _VP],
+    "secp_msm_winreduce": [_VP] * 7 + [_INT] * 4 + [_VP],
+    "secp_msm_finish": [_VP] * 8 + [_INT] * 3 + [_VP],
 }
 
 _LIB = None
@@ -57,7 +61,8 @@ LAUNCH_COUNTS: dict[str, int] = {
     "mulmod_chain": 0, "ecdsa_prep": 0, "fixedbase_digits": 0,
     "ecmult_glv": 0, "lift_x": 0, "glv_only": 0, "schnorr_check": 0,
     "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
-    "fixedbase_blinded": 0}
+    "fixedbase_blinded": 0, "gej_add": 0, "msm_table": 0,
+    "msm_winreduce": 0, "msm_finish": 0}
 
 
 def count_launch(name: str) -> None:

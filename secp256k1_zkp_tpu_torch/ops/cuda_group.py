@@ -4,7 +4,9 @@ kernel R = u1*G + u2*P with the fused ECDSA x(R) === r check.
 Counterpart of the JAX package's ``ops/pallas_group.py``: ``FE`` with a
 static limb bound, ``jp_double``, ``jp_add_aff``, ``jp_add``,
 ``add_aff_ratio`` as plain PyTorch on limb-major ``[16, B]`` int64 rows,
-and ``ecmult_glv`` (kernel wrapper) beside ``ecmult_glv_ref``.
+``affine_multiples`` (the true-affine d*P table build that ``ecmult_glv``
+and the MSM engine share), and two kernels: ``ecmult_glv`` beside
+``ecmult_glv_ref`` and ``gej_add`` beside ``gej_add_ref``.
 
 The formulas are the reference's line for line, so every coordinate is the
 same residue mod p as the JAX kernel's.  Weak representatives may differ
@@ -240,6 +242,42 @@ def _rows_fe(t: torch.Tensor) -> FE:
     return FE(t.to(I64), MASK16)
 
 
+def _canon32(a: FE) -> torch.Tensor:
+    return canon_p(fe_weak(a).l).to(torch.int32)
+
+
+def affine_multiples(px: FE, py: FE, count: int):
+    """d*P for d = 1..``count`` as TRUE-affine weak FE lists (index 0
+    unused): a jacobian chain with z-ratio tracking (one doubling, mixed
+    adds), one inverse of the last Z and the backward global-Z pass.  P
+    must be a finite point (callers substitute G for infinity)."""
+    like = px.l[0]
+    X = [None] * (count + 1)
+    Y = [None] * (count + 1)
+    R = [None] * (count + 1)                 # z_d = z_{d-1} * R[d]
+    X[1], Y[1] = px, py
+    d2 = jp_double(JP(px, py, fe_one(like),
+                      torch.zeros_like(like, dtype=torch.bool)))
+    X[2], Y[2], pz = d2.x, d2.y, d2.z
+    R[2] = pz
+    for d in range(3, count + 1):
+        X[d], Y[d], pz, R[d] = add_aff_ratio(X[d - 1], Y[d - 1], pz, px, py)
+    zi = FE(inv_limbs16(canon_p(fe_weak(pz).l), P_PRIME), MASK16)
+    zi2 = fe_sqr(zi)
+    zi3 = fe_mul(zi2, zi)
+    axs = [None] * (count + 1)
+    ays = [None] * (count + 1)
+    axs[count] = fe_mul(X[count], zi2)
+    ays[count] = fe_mul(Y[count], zi3)
+    acc = None
+    for d in range(count - 1, 0, -1):
+        acc = R[d + 1] if acc is None else fe_mul(acc, R[d + 1])
+        a2c = fe_sqr(acc)
+        axs[d] = fe_mul(fe_mul(X[d], a2c), zi2)
+        ays[d] = fe_mul(fe_mul(Y[d], fe_mul(a2c, acc)), zi3)
+    return axs, ays
+
+
 def ecmult_glv_ref(digs, flags, px, py, pinf, gjac, rx=None):
     """Plain version of :func:`ecmult_glv` (any device)."""
     digs = digs.to(I64)
@@ -257,33 +295,7 @@ def ecmult_glv_ref(digs, flags, px, py, pinf, gjac, rx=None):
     pyc = fe_weak(fe_select(neg1, fe_neg(py_f), py_f))
     flip = neg1 ^ neg2
 
-    # --- P table 1..16, jacobian build with z-ratio tracking ---------------
-    one = fe_one(like)
-    X = [None] * NT
-    Y = [None] * NT
-    R = [None] * NT                          # z_d = z_{d-1} * R[d]
-    X[1], Y[1] = px_f, pyc
-    d2 = jp_double(JP(px_f, pyc, one, torch.zeros_like(pinf)))
-    X[2], Y[2], pz = d2.x, d2.y, d2.z
-    R[2] = pz
-    for d in range(3, NT):
-        X[d], Y[d], pz, R[d] = add_aff_ratio(X[d - 1], Y[d - 1], pz,
-                                             px_f, pyc)
-
-    # --- global-Z pass + one inverse -> TRUE affine ------------------------
-    zi = FE(inv_limbs16(canon_p(fe_weak(pz).l), P_PRIME), MASK16)
-    zi2 = fe_sqr(zi)
-    zi3 = fe_mul(zi2, zi)
-    axs = [None] * NT
-    ays = [None] * NT
-    axs[NT - 1] = fe_mul(X[NT - 1], zi2)
-    ays[NT - 1] = fe_mul(Y[NT - 1], zi3)
-    acc = None
-    for d in range(NT - 2, 0, -1):
-        acc = R[d + 1] if acc is None else fe_mul(acc, R[d + 1])
-        a2c = fe_sqr(acc)
-        axs[d] = fe_mul(fe_mul(X[d], a2c), zi2)
-        ays[d] = fe_mul(fe_mul(Y[d], fe_mul(a2c, acc)), zi3)
+    axs, ays = affine_multiples(px_f, pyc, NT - 1)
     # lambda*P' table: beta * x
     beta = fe_const(_BETA, like)
     bxs = [None] + [fe_mul(axs[d], beta) for d in range(1, NT)]
@@ -374,3 +386,54 @@ def ecmult_glv(digs, flags, px, py, pinf, gjac, rx=None):
         ok.data_ptr(), lanes, int(check),
         _build.stream_ptr()), "ecmult_glv")
     return ox, oy, oz, oinf != 0, ok != 0
+
+
+# ---------------------------------------------------------------------------
+# gej_add: the batched complete jacobian add (the MSM engine's collapse and
+# batch verify's rhs add).
+# ---------------------------------------------------------------------------
+
+
+def _jp_rows(a) -> JP:
+    x, y, z, inf = a
+    return JP(_rows_fe(x), _rows_fe(y), _rows_fe(z), inf.to(torch.bool))
+
+
+def gej_add_ref(a, b):
+    """Plain version of :func:`gej_add` (any device)."""
+    out = jp_add(_jp_rows(a), _jp_rows(b))
+    return _canon32(out.x), _canon32(out.y), _canon32(out.z), out.inf
+
+
+def gej_add(a, b):
+    """Complete jacobian a + b, lane by lane: a and b are (x, y, z
+    ``[16, B]`` int32 limbs, inf ``[B]`` bool).  Handles P + P, P + (-P)
+    and infinity operands.
+
+    Returns (x, y, z ``[16, B]`` int32 **canonical**, inf ``[B]`` bool).
+    CUDA tensors go through the hand-written kernel (``csrc/gej_add.cu``);
+    CPU tensors through the plain version."""
+    if not a[0].is_cuda:
+        return gej_add_ref(a, b)
+    lanes = _build.check_rows(a[0], LIMBS, "gej_add ax")
+    i32 = torch.int32
+    args = []
+    for side, (x, y, z, inf) in (("a", a), ("b", b)):
+        for name, t in (("x", x), ("y", y), ("z", z)):
+            _build.check_rows(t, LIMBS, f"gej_add {side}{name}", lanes)
+        if not inf.is_cuda or inf.shape != (lanes,):
+            raise ValueError(f"gej_add {side}inf: expected a CUDA [B] mask")
+        # the int32 flags die with this call while the kernel may still
+        # run: safe, the caching allocator reuses a block in stream order
+        args += [x, y, z, inf.to(i32).contiguous()]
+    ox = torch.empty((LIMBS, lanes), dtype=i32, device=a[0].device)
+    oy = torch.empty_like(ox)
+    oz = torch.empty_like(ox)
+    oinf = torch.empty((lanes,), dtype=i32, device=a[0].device)
+    lib = _build.lib()
+    _build.count_launch("gej_add")
+    _build.check(lib.secp_gej_add(
+        *(t.data_ptr() for t in args), ox.data_ptr(), oy.data_ptr(),
+        oz.data_ptr(), oinf.data_ptr(), lanes, _build.stream_ptr()),
+        "gej_add")
+    return ox, oy, oz, oinf != 0

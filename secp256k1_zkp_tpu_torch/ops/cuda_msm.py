@@ -1,0 +1,363 @@
+"""The fused windowed-table MSM engine: R = sum_i k_i * P_i.
+
+Counterpart of the JAX package's ``ops/pallas_msm.py``: per-point
+true-affine tables d*P, d = 1..15 (``msm_table``), 4-bit windows reduced
+to per-window partial sums (``msm_winreduce``), the Horner recurrence
+R = 16*R + S_w on a few lanes (``msm_finish``), and the collapse of those
+lanes by the ``gej_add`` kernel; ``msm_windowed`` chains them, as
+``msm_windowed_tpu`` does.  Each kernel wrapper sits beside its plain
+PyTorch version; the device of the tensors decides which runs.
+
+Layouts: points are limb-major ``[16, N]`` int32 limbs with ``[N]`` bool
+infinity masks, as every kernel of the port takes them; digits are
+``[nwin, N]`` int32 (window w of lane i at ``[w, i]``, LSB window first);
+the table is lane-major ``[N, 15, 16]`` int32 — entry d - 1 of lane i
+holds the 32-bit words of the canonical affine d*P_i, x in 0-7 and y in
+8-15 (``csrc/msm.cuh``), so a lane's digit names one 64-byte entry.
+
+The window partials and the finish lanes are jacobian: their
+representation depends on the order of the additions, so the kernels and
+the plain versions are compared as points (:func:`points_affine`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as tnf
+
+from . import _build
+from . import field as F
+from .cuda_divsteps import inv_limbs16
+from .cuda_field import LIMBS, MASK16, P_PRIME, canon_p, mul_limbs, sqr_limbs
+from .cuda_gen import pack_words
+from .cuda_group import (FE, JP, _canon32, _rows_fe, affine_multiples,
+                         fe_const, fe_select, fe_weak, gej_add, jp_add,
+                         jp_double, jp_inf)
+from .group import GE, GEJ
+from .limb import LB, from_rows, kernel_rows
+from ..utils import hostcurve
+
+NENT = 15                 # table entries 1..15 (unsigned 4-bit digits)
+WR_THREADS = 128          # threads of an msm_winreduce block (csrc)
+WR_LANES_PER_THREAD = 32  # lanes a thread folds at large N
+WR_MIN_BLOCKS = 1056      # msm_winreduce blocks to aim for: 8 per SM of
+                          # an H100's 132 (chip_smoke.py times others)
+FINISH_LANES = 128        # Horner lanes of msm_finish, collapsed by gej_add
+I32 = torch.int32
+I64 = torch.int64
+
+
+def digits_u4(k: torch.Tensor, nwin: int) -> torch.Tensor:
+    """Canonical ``[16, N]`` scalar limbs -> ``[nwin, N]`` int32 unsigned
+    4-bit window digits, LSB window first (each digit sits inside one
+    16-bit limb); the counterpart of ``pallas_msm._digits_u4``."""
+    shifts = torch.arange(0, 16, 4, dtype=I64, device=k.device)
+    d = (k.to(I64)[:, None, :] >> shifts[None, :, None]) & 0xF
+    return d.reshape(4 * LIMBS, -1)[:nwin].to(I32).contiguous()
+
+
+def _unpack_words(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 8]`` int32 words -> ``[..., 16]`` int64 base-2^16 limbs."""
+    w = w.to(I64) & 0xFFFFFFFF
+    return torch.stack([w & MASK16, w >> 16], -1).flatten(-2)
+
+
+# ---------------------------------------------------------------------------
+# msm_table
+# ---------------------------------------------------------------------------
+
+
+def msm_table_ref(px, py, pinf):
+    """Plain version of :func:`msm_table` (any device)."""
+    pinf = pinf.to(torch.bool)
+    like = px[0]
+    x = fe_select(pinf, fe_const(hostcurve.GX, like), _rows_fe(px))
+    y = fe_select(pinf, fe_const(hostcurve.GY, like), _rows_fe(py))
+    axs, ays = affine_multiples(x, y, NENT)
+    ent = torch.stack([torch.stack([canon_p(fe_weak(axs[d]).l),
+                                    canon_p(fe_weak(ays[d]).l)])
+                       for d in range(1, NENT + 1)])      # [15, 2, 16, N]
+    words = pack_words(ent.permute(3, 0, 1, 2))           # [N, 15, 2, 8]
+    return words.reshape(-1, NENT, 16).contiguous()
+
+
+def msm_table(px, py, pinf):
+    """Per point, the canonical affine d*P for d = 1..15: px, py ``[16, N]``
+    int32 limbs, pinf ``[N]`` bool (those lanes' tables are built from G
+    and never read) -> ``[N, 15, 16]`` int32 words (module docstring).
+
+    CUDA tensors go through the hand-written kernel (``csrc/msm_table.cu``);
+    CPU tensors through the plain version."""
+    if not px.is_cuda:
+        return msm_table_ref(px, py, pinf)
+    lanes = _build.check_rows(px, LIMBS, "msm_table px")
+    _build.check_rows(py, LIMBS, "msm_table py", lanes)
+    if not pinf.is_cuda or pinf.shape != (lanes,):
+        raise ValueError("msm_table pinf: expected a CUDA [N] mask")
+    pinf32 = pinf.to(I32).contiguous()
+    tab = torch.empty((lanes, NENT, 16), dtype=I32, device=px.device)
+    lib = _build.lib()
+    _build.count_launch("msm_table")
+    _build.check(lib.secp_msm_table(
+        px.data_ptr(), py.data_ptr(), pinf32.data_ptr(), tab.data_ptr(),
+        lanes, _build.stream_ptr()), "msm_table")
+    return tab
+
+
+# ---------------------------------------------------------------------------
+# msm_winreduce
+# ---------------------------------------------------------------------------
+
+
+def winreduce_blocks(lanes: int, nwin: int) -> int:
+    """Lane chunks per window (``nblk``): about WR_LANES_PER_THREAD lanes a
+    thread at large N, at least WR_MIN_BLOCKS blocks in all where N
+    allows, never a block with fewer lanes than threads."""
+    most = -(-lanes // WR_THREADS)
+    want = max(-(-lanes // (WR_THREADS * WR_LANES_PER_THREAD)),
+               -(-WR_MIN_BLOCKS // nwin))
+    nblk = max(1, min(most, want))
+    chunk = -(-lanes // nblk)
+    return -(-lanes // chunk)               # no empty chunk
+
+
+def _tree_sum(p: JP, width: int) -> JP:
+    """Sum each run of ``width`` consecutive lanes (a power of two) by
+    halving levels of complete adds -> one lane per run."""
+    while width > 1:
+        h = width // 2
+
+        def half(t, lo):
+            v = t.reshape(*t.shape[:-1], -1, width)[..., lo:lo + h]
+            return v.reshape(*t.shape[:-1], -1)
+
+        a = JP(*(FE(half(c.l, 0), c.bound) for c in (p.x, p.y, p.z)),
+               half(p.inf, 0))
+        b = JP(*(FE(half(c.l, h), c.bound) for c in (p.x, p.y, p.z)),
+               half(p.inf, h))
+        p = jp_add(a, b)
+        width = h
+    return p
+
+
+def msm_winreduce_ref(digs, tab, pinf, nblk: int):
+    """Plain version of :func:`msm_winreduce` (any device).  Each chunk's
+    lanes are summed by a tree of complete adds, a few windows at a time
+    (at most 2^22 lanes in flight: the column products of the first level
+    then take 4 GB)."""
+    nwin, lanes = digs.shape
+    chunk = -(-lanes // nblk)
+    width = 1 << (chunk - 1).bit_length()
+    group = max(1, (1 << 22) // (nblk * width))
+    pinf = pinf.to(torch.bool)
+    lane_idx = torch.arange(lanes, device=digs.device)
+    outs = []
+    for w0 in range(0, nwin, group):
+        d = digs[w0:w0 + group].to(I64) & 0xF                  # [g, N]
+        ent = tab[lane_idx[None, :], (d - 1).clamp(min=0)]    # [g, N, 16]
+        x = _unpack_words(ent[..., :8])
+        y = _unpack_words(ent[..., 8:])
+        inf = (d == 0) | pinf[None, :]
+
+        def lay(t, fill):
+            # [..., g, N] -> [..., g * nblk * width]: chunk c of window w
+            # is the run of ``width`` lanes at (w * nblk + c) * width
+            t = tnf.pad(t, (0, nblk * chunk - lanes), value=fill)
+            t = t.reshape(*t.shape[:-1], nblk, chunk)
+            t = tnf.pad(t, (0, width - chunk), value=fill)
+            return t.reshape(*t.shape[:-3], -1)
+
+        xs = lay(x.permute(2, 0, 1), 0)                        # [16, L]
+        one = torch.zeros_like(xs)
+        one[0] = 1
+        p = JP(FE(xs, MASK16), FE(lay(y.permute(2, 0, 1), 0), MASK16),
+               FE(one, MASK16), lay(inf.to(I64), 1) != 0)
+        outs.append(_tree_sum(p, width))
+    return (torch.cat([_canon32(o.x) for o in outs], 1),
+            torch.cat([_canon32(o.y) for o in outs], 1),
+            torch.cat([_canon32(o.z) for o in outs], 1),
+            torch.cat([o.inf for o in outs]))
+
+
+def msm_winreduce(digs, tab, pinf, nblk: int):
+    """Per window w and lane chunk c, the partial sum of d_{i,w} * P_i over
+    the chunk's lanes: digs ``[nwin, N]`` int32 (0..15), tab the
+    ``[N, 15, 16]`` table of :func:`msm_table`, pinf ``[N]`` bool (those
+    lanes add nothing), ``nblk`` chunks of ceil(N / nblk) lanes.
+
+    Returns jacobian (x, y, z ``[16, nwin * nblk]`` int32 canonical, inf
+    ``[nwin * nblk]`` bool), partial (w, c) at column w * nblk + c.  CUDA
+    tensors go through the hand-written kernel (``csrc/msm_winreduce.cu``);
+    CPU tensors through the plain version."""
+    if not digs.is_cuda:
+        return msm_winreduce_ref(digs, tab, pinf, nblk)
+    nwin = digs.shape[0]
+    lanes = _build.check_rows(digs, nwin, "msm_winreduce digs")
+    if (not tab.is_cuda or tab.dtype != I32 or not tab.is_contiguous()
+            or tab.shape != (lanes, NENT, 16)):
+        raise ValueError("msm_winreduce tab: expected a contiguous CUDA "
+                         f"int32 [{lanes}, {NENT}, 16] table")
+    if not pinf.is_cuda or pinf.shape != (lanes,):
+        raise ValueError("msm_winreduce pinf: expected a CUDA [N] mask")
+    chunk = -(-lanes // nblk)
+    if not 1 <= nblk <= lanes or -(-lanes // chunk) != nblk:
+        raise ValueError(f"msm_winreduce: {nblk} chunks of {lanes} lanes "
+                         "leave one empty")
+    pinf32 = pinf.to(I32).contiguous()
+    cols = nwin * nblk
+    ox = torch.empty((LIMBS, cols), dtype=I32, device=digs.device)
+    oy = torch.empty_like(ox)
+    oz = torch.empty_like(ox)
+    oinf = torch.empty((cols,), dtype=I32, device=digs.device)
+    lib = _build.lib()
+    _build.count_launch("msm_winreduce")
+    _build.check(lib.secp_msm_winreduce(
+        digs.data_ptr(), tab.data_ptr(), pinf32.data_ptr(), ox.data_ptr(),
+        oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(), lanes, nwin, nblk,
+        chunk, _build.stream_ptr()), "msm_winreduce")
+    return ox, oy, oz, oinf != 0
+
+
+# ---------------------------------------------------------------------------
+# msm_finish, the collapse, and the engine
+# ---------------------------------------------------------------------------
+
+
+def msm_finish_ref(x, y, z, inf, nwin: int):
+    """Plain version of :func:`msm_finish` (any device): the kernel's
+    recurrence in the kernel's order, on all lanes at once."""
+    lanes = FINISH_LANES
+    nblk = x.shape[1] // nwin
+    steps = -(-nblk // lanes)
+    pad = steps * lanes - nblk
+
+    def lay(t, fill):
+        # [..., nwin * nblk] -> [..., nwin, steps, lanes]: partial j of a
+        # window goes to lane j % lanes at step j // lanes
+        t = t.reshape(*t.shape[:-1], nwin, nblk)
+        t = tnf.pad(t, (0, pad), value=fill)
+        return t.reshape(*t.shape[:-1], steps, lanes)
+
+    px, py, pz = (lay(t.to(I64), 0) for t in (x, y, z))
+    pinf = lay(inf.to(I64), 1) != 0
+    # a lane past the last partial of a step adds nothing in the kernel
+    real = lay(torch.ones_like(inf, dtype=I64), 0) != 0
+    r = jp_inf(px[0, 0, 0])
+    for w in range(nwin - 1, -1, -1):
+        for _ in range(4):
+            r = jp_double(r)
+        for j in range(steps):
+            s = jp_add(r, JP(FE(px[:, w, j], MASK16), FE(py[:, w, j], MASK16),
+                             FE(pz[:, w, j], MASK16), pinf[w, j]))
+            m = real[w, j]
+            r = JP(fe_select(m, s.x, r.x), fe_select(m, s.y, r.y),
+                   fe_select(m, s.z, r.z), torch.where(m, s.inf, r.inf))
+    return _canon32(r.x), _canon32(r.y), _canon32(r.z), r.inf
+
+
+def msm_finish(x, y, z, inf, nwin: int):
+    """The window partials of :func:`msm_winreduce` (``[16, nwin * nblk]``
+    int32, inf ``[nwin * nblk]`` bool) -> FINISH_LANES jacobian lanes whose
+    sum is sum_w 16^w * S_w: lane l runs R = 16*R + (partials l,
+    l + FINISH_LANES, ... of window w), most significant window first.
+
+    Returns (x, y, z ``[16, FINISH_LANES]`` int32 canonical, inf
+    ``[FINISH_LANES]`` bool).  CUDA tensors go through the hand-written kernel
+    (``csrc/msm_finish.cu``); CPU tensors through the plain version."""
+    if not x.is_cuda:
+        return msm_finish_ref(x, y, z, inf, nwin)
+    cols = _build.check_rows(x, LIMBS, "msm_finish x")
+    _build.check_rows(y, LIMBS, "msm_finish y", cols)
+    _build.check_rows(z, LIMBS, "msm_finish z", cols)
+    if not inf.is_cuda or inf.shape != (cols,):
+        raise ValueError("msm_finish inf: expected a CUDA mask")
+    if cols % nwin:
+        raise ValueError(f"msm_finish: {cols} partials for {nwin} windows")
+    lanes = FINISH_LANES
+    inf32 = inf.to(I32).contiguous()
+    ox = torch.empty((LIMBS, lanes), dtype=I32, device=x.device)
+    oy = torch.empty_like(ox)
+    oz = torch.empty_like(ox)
+    oinf = torch.empty((lanes,), dtype=I32, device=x.device)
+    lib = _build.lib()
+    _build.count_launch("msm_finish")
+    _build.check(lib.secp_msm_finish(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), inf32.data_ptr(),
+        ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(), nwin,
+        cols // nwin, lanes, _build.stream_ptr()), "msm_finish")
+    return ox, oy, oz, oinf != 0
+
+
+def collapse(x, y, z, inf):
+    """Sum the lanes of a jacobian point set (a power of two of them) to
+    one, by halving levels of :func:`cuda_group.gej_add` — one launch a
+    level on a card, as ``_collapse128`` does.  Returns ``[16, 1]`` rows
+    and a ``[1]`` mask."""
+    width = x.shape[1]
+    assert width & (width - 1) == 0, width
+    cur = (x, y, z, inf)
+    while width > 1:
+        h = width // 2
+        cur = gej_add(tuple(t[..., :h].contiguous() for t in cur),
+                      tuple(t[..., h:].contiguous() for t in cur))
+        width = h
+    return cur
+
+
+def points_affine(x, y, z, inf, groups: int):
+    """Comparison support, called by ``chip_smoke.py`` and the tests and
+    by nothing on the engine's path: split the lanes into ``groups`` equal
+    runs, sum each run, and return each sum as canonical affine
+    (x, y ``[16, groups]`` int64, zeros at infinity; inf ``[groups]``).
+    Jacobian results of different addition orders compare equal here
+    exactly when they are the same points."""
+    per = x.shape[1] // groups
+    width = 1 << (per - 1).bit_length()
+
+    def lay(t, fill):
+        t = t.reshape(*t.shape[:-1], groups, per)
+        return tnf.pad(t, (0, width - per), value=fill) \
+            .reshape(*t.shape[:-2], -1)
+
+    p = _tree_sum(JP(*(FE(lay(t.to(I64), 0), MASK16) for t in (x, y, z)),
+                     lay(inf.to(I64), 1) != 0), width)
+    zinv = inv_limbs16(canon_p(fe_weak(p.z).l), P_PRIME)
+    zi2 = sqr_limbs(zinv)
+    ax = canon_p(mul_limbs(fe_weak(p.x).l, zi2))
+    ay = canon_p(mul_limbs(fe_weak(p.y).l, mul_limbs(zi2, zinv)))
+    keep = ~p.inf[None, :]
+    return ax * keep, ay * keep, p.inf
+
+
+def msm_windowed(ks: LB, pts: GE, nbits: int = 256) -> GEJ:
+    """R = sum_i k_i * P_i: ks ``[N, 16]`` canonical scalar limbs below
+    2^nbits, pts a ``GE`` of N points (infinite lanes add nothing).
+    Returns a 0-d ``GEJ``; the counterpart of ``msm_windowed_tpu``.
+
+    ``nbits`` must be 128 or 256, and 128-bit scalars must have zero high
+    limbs (checked, one reduction on the device).  The JAX function floors
+    ``nwin // chunk`` in its finish and so silently drops top windows for
+    other widths, and never checks that the scalars fit (ROADMAP Queue C);
+    the port refuses both instead.  Its kernels mask the ragged edge, so
+    nothing is padded.
+
+    msm_table -> msm_winreduce -> msm_finish -> log2(FINISH_LANES) levels
+    of gej_add: on CUDA tensors the hand-written kernels, on CPU tensors
+    their plain versions."""
+    if nbits not in (128, 256):
+        raise ValueError(f"msm_windowed: nbits must be 128 or 256, not "
+                         f"{nbits}")
+    lanes = ks.v.shape[0]
+    if ks.v.dim() != 2 or lanes == 0 or pts.x.v.shape[0] != lanes:
+        raise ValueError("msm_windowed: expected N >= 1 scalars [N, 16] and "
+                         "N points")
+    if nbits == 128 and bool((ks.v[:, 8:] != 0).any()):
+        raise ValueError("msm_windowed: a scalar exceeds 128 bits")
+    nwin = nbits // 4
+    digs = digits_u4(kernel_rows(ks), nwin)
+    pinf = pts.inf.to(torch.bool).contiguous()
+    tab = msm_table(kernel_rows(F.norm_weak(pts.x)),
+                    kernel_rows(F.norm_weak(pts.y)), pinf)
+    parts = msm_winreduce(digs, tab, pinf, winreduce_blocks(lanes, nwin))
+    x, y, z, inf = collapse(*msm_finish(*parts, nwin))
+    return GEJ(*(from_rows(t, ()) for t in (x, y, z)), inf[0])

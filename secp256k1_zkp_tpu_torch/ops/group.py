@@ -1,11 +1,16 @@
 """secp256k1 point containers on PyTorch tensors.
 
 Counterpart of the containers and constructors of the JAX package's
-``ops/group.py``.  Points are structure-of-arrays dataclasses: each
-coordinate is a batched limb tensor and infinity is an explicit lane
-mask.  The portable group formulas (``gej_double``, ``gej_add_ge``, ...)
-and ``ops/ecmult.py`` are not ported yet; the complete formulas the
-verify kernels use live in ``ops/cuda_group.py``.
+``ops/group.py``, and of the three formulas batch verify needs there:
+``gej_add``, ``gej_eq`` and ``ge_from_gej``.  Points are
+structure-of-arrays dataclasses: each coordinate is a batched limb tensor
+and infinity is an explicit lane mask.  ``gej_add`` is the ``gej_add``
+kernel on a card (its plain version on the CPU); ``gej_eq`` and
+``ge_from_gej`` are plain PyTorch on either device, as the JAX package
+computes them outside any Pallas kernel.  The other portable formulas
+(``gej_double``, ``gej_add_ge``, ...) and ``ops/ecmult.py`` are not
+ported yet; the complete formulas the kernels use live in
+``ops/cuda_group.py``.
 """
 
 from __future__ import annotations
@@ -14,8 +19,11 @@ import dataclasses
 
 import torch
 
+from . import cuda_group
 from . import field as F
-from .limb import LB, LIMBS
+from .cuda_divsteps import inv_limbs16
+from .cuda_field import canon_p, mul_limbs, sqr_limbs
+from .limb import LB, LIMBS, MASK16, from_rows, kernel_rows
 
 
 @dataclasses.dataclass
@@ -79,3 +87,60 @@ def ge_is_on_curve(a: GE):
     x3 = F.mul(F.sqr(a.x), a.x)
     rhs = F.add(x3, F.fe(F.B_COEFF, a.device))
     return a.inf | F.eq(y2, rhs)
+
+
+def gej_infinity(batch_shape=(), device="cpu") -> GEJ:
+    one = F.FP.one(batch_shape, device)
+    return GEJ(F.fe_zero(batch_shape, device), one, one,
+               torch.ones(batch_shape, dtype=torch.bool, device=device))
+
+
+def gej_add(a: GEJ, b: GEJ) -> GEJ:
+    """Complete general addition a + b (any batch shape, both alike):
+    P + P, P + (-P) and infinity operands included.  Through
+    ``cuda_group.gej_add``: the kernel on CUDA tensors, its plain version
+    on CPU tensors; canonical coordinates out."""
+    shape = a.batch_shape
+    x, y, z, inf = cuda_group.gej_add(
+        tuple(kernel_rows(F.norm_weak(c)) for c in (a.x, a.y, a.z))
+        + (a.inf.reshape(-1),),
+        tuple(kernel_rows(F.norm_weak(c)) for c in (b.x, b.y, b.z))
+        + (b.inf.reshape(-1),))
+    return GEJ(*(from_rows(t, shape) for t in (x, y, z)), inf.reshape(shape))
+
+
+def gej_eq(a: GEJ, b: GEJ):
+    """Projective equality, infinity-aware: both infinite, or neither and
+    X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3.  Computed on the limb rows
+    of ``cuda_field`` with both sides side by side as lanes — one squaring
+    and three multiplies, a tenth of the eager ops of the ``Mod`` route
+    (batch verify ends with it)."""
+    shape = torch.broadcast_shapes(a.batch_shape, b.batch_shape)
+
+    def rows(*cs):
+        return torch.cat([F.norm_weak(c).v.expand(*shape, LIMBS)
+                          .reshape(-1, LIMBS).T for c in cs], 1)
+
+    n = rows(a.z).shape[1]
+    z = rows(a.z, b.z)
+    zz = sqr_limbs(z)
+    swap = [*range(n, 2 * n), *range(n)]
+    c = canon_p(torch.cat([
+        mul_limbs(rows(a.x, b.x), zz[:, swap]),        # X1 Z2^2 | X2 Z1^2
+        mul_limbs(rows(a.y, b.y),
+                  mul_limbs(zz, z)[:, swap])], 1))     # Y1 Z2^3 | Y2 Z1^3
+    eq = ((c[:, :n] == c[:, n:2 * n]).all(0)
+          & (c[:, 2 * n:3 * n] == c[:, 3 * n:]).all(0)).reshape(shape)
+    return (a.inf & b.inf) | (~a.inf & ~b.inf & eq)
+
+
+def ge_from_gej(a: GEJ) -> GE:
+    """Affine conversion, one safegcd inverse per lane (the plain
+    ``cuda_divsteps`` version; inv(0) = 0, so infinite lanes give zeros
+    beside their flag)."""
+    shape = a.batch_shape
+    zinv = inv_limbs16(kernel_rows(F.normalize(a.z)).to(torch.int64), F.P)
+    zi = LB(zinv.T.reshape(*shape, LIMBS), MASK16)
+    zi2 = F.sqr(zi)
+    return GE(F.normalize(F.mul(a.x, zi2)),
+              F.normalize(F.mul(F.mul(a.y, zi2), zi)), a.inf)

@@ -76,6 +76,21 @@ def lb_from_int(x: int, limbs: int = LIMBS, device="cpu") -> LB:
                            device=device), MASK16)
 
 
+def kernel_rows(a: LB) -> torch.Tensor:
+    """``[..., 16]`` limbs (each <= 0xFFFF) -> the kernels' ``[16, B]``
+    int32 operand, the batch flattened."""
+    return a.v.reshape(-1, LIMBS).T.to(torch.int32).contiguous()
+
+
+def from_rows(t: torch.Tensor, batch_shape=None) -> LB:
+    """The kernels' ``[16, B]`` int32 limbs -> an int64 ``LB`` of shape
+    ``[B, 16]``, or ``[*batch_shape, 16]``."""
+    v = t.T.to(DTYPE)
+    if batch_shape is not None:
+        v = v.reshape(*batch_shape, LIMBS)
+    return LB(v.contiguous(), MASK16)
+
+
 def limbs_to_int_np(arr) -> int:
     """Host-side: collapse a limb vector (last axis) to a Python int."""
     arr = np.asarray(arr, dtype=np.uint64)

@@ -182,12 +182,13 @@ def test_converted_tables_and_containers(batch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
+        "import torch\n"
         "import secp256k1_zkp_tpu_torch as t\n"
         "from secp256k1_zkp_tpu_torch import context, config\n"
         "from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig\n"
         "from secp256k1_zkp_tpu_torch.ops import (_build, cuda_divsteps,\n"
-        "    cuda_field, cuda_gen, cuda_group, cuda_scalar, cuda_sha256,\n"
-        "    field, group, limb, scalar, sha256)\n"
+        "    cuda_field, cuda_gen, cuda_group, cuda_msm, cuda_scalar,\n"
+        "    cuda_sha256, field, group, limb, msm, scalar, sha256)\n"
         "from secp256k1_zkp_tpu_torch.utils import (convert, hostcurve,\n"
         "    sha256_host)\n"
         "context.selftest('cpu')\n"
@@ -197,8 +198,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "           schnorrsig.keypair_xonly, cuda_gen.ecmult_gen,\n"
         "           cuda_gen.ecdsa_sign_finish, cuda_gen.affine_xy,\n"
         "           cuda_gen.muladd_n, sha256.hmac_sha256, sha256.RFC6979,\n"
-        "           convert.blind_from_jax):\n"
+        "           convert.blind_from_jax, schnorrsig.batch_verify,\n"
+        "           msm.ecmult_multi, cuda_msm.msm_windowed,\n"
+        "           cuda_group.gej_add, group.gej_eq):\n"
         "    assert callable(fn)\n"
+        "pt = group.generator((1,))\n"
+        "r = msm.ecmult_multi(limb.LB(torch.tensor([[2] + [0] * 15]),\n"
+        "                             0xFFFF), pt, device='cpu')\n"
+        "assert group.gej_eq(r, group.gej_add(\n"
+        "    *[group.GEJ(pt.x, pt.y, field.FP.one((1,)), pt.inf)] * 2))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'secp256k1_zkp_tpu'\n"
         "       or m.startswith('secp256k1_zkp_tpu.') or m == 'triton']\n"

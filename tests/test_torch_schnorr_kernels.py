@@ -213,3 +213,8 @@ def test_c_entry_points_match_ctypes_signatures():
     # the sign slice's entry points, the blinded comb's among them
     assert {"secp_fixedbase_digits_blinded", "secp_ecdsa_finish",
             "secp_affine_xy", "secp_muladd_n"} <= set(entries)
+    # the MSM engine's: gej_add and the three fused-MSM kernels
+    assert {"gej_add.cu", "msm_table.cu", "msm_winreduce.cu",
+            "msm_finish.cu", "msm.cuh"} <= {p.name for p in _build.sources()}
+    assert {"secp_gej_add", "secp_msm_table", "secp_msm_winreduce",
+            "secp_msm_finish"} <= set(entries)
