@@ -9,20 +9,26 @@ batched BIP-340 Schnorr verify (``modules.schnorrsig.verify``), batched
 ECDSA sign (``modules.ecdsa.sign``) and batched BIP-340 sign
 (``modules.schnorrsig.sign``), blinded by a ``context.Context`` and not,
 each at 16,384 and 262,144 lanes, BIP-340 batch verification
-(``modules.schnorrsig.batch_verify``) at the same sizes, and a 2^20-point
-multi-scalar multiplication (``ops.msm.ecmult_multi``) — builds the
-fifteen hand-written kernels from the sources in this checkout, holds each
-(and the blinded variant of the comb kernel) against its plain PyTorch
-version on the card at every shape those paths give it (exact equality:
-the values are integers, the tolerance is 0; the MSM engine's window
-partials and finish lanes as points, since their jacobian form depends on
-the order of the additions), checks every signature byte against one made
-on the host with Python integers, ``hashlib`` and ``hmac``, feeds the
-port's own signatures to its verify, checks batch verification's verdicts
-and its right-hand point, and the MSM, against Python integers, times the
-kernels and the calls, and prints one JSON line per phase.  Any failed
-phase raises: nothing is caught.  Without a CUDA device the script exits
-non-zero and prints no result.
+(``modules.schnorrsig.batch_verify``) at the same sizes, a 2^20-point
+multi-scalar multiplication (``ops.msm.ecmult_multi``), blinded NUMS
+generators from 64 asset tags (``modules.generator.generator_generate``
+and ``generator_serialize``, at 16,384), Pedersen commitments to them
+(``generator.pedersen_commit_bytes``), the tally check
+(``generator.pedersen_verify_tally``) and ECDSA public-key recovery
+(``modules.ecdsa.recover``) at both sizes — builds the seventeen
+hand-written kernels from the sources in this checkout, holds each (and
+the blinded variant of the comb kernel) against its plain PyTorch version
+on the card at every shape those paths give it (exact equality: the
+values are integers, the tolerance is 0; the MSM engine's window partials
+and finish lanes as points, since their jacobian form depends on the
+order of the additions), checks every signature, generator and
+commitment byte against one made on the host with Python integers,
+``hashlib`` and ``hmac``, feeds the port's own signatures to its verify
+and recovers their keys, checks batch verification's verdicts and its
+right-hand point, the MSM and the tally verdicts against Python integers,
+times the kernels and the calls, and prints one JSON line per phase.  Any
+failed phase raises: nothing is caught.  Without a CUDA device the script
+exits non-zero and prints no result.
 
 Bounds: ``bound_ms`` is the larger of bytes/3.35 TB/s (each operand read
 once, each result written once) and operations/67 TOP/s, the card's
@@ -49,6 +55,11 @@ k = n - b, 0, 1 and n - 1, the special cases of its last complete add.  ``fixedb
 entry point (one more mixed add of -b*G), counted apart from the
 unblinded one so that each shows its launches.
 
+``affine_meta`` is held on the commit pipeline's jacobian results with
+z = 0, the weak z = p + 1, the weak zero z = p and y = 0 on lanes 0-3, and
+on the generator serializer's (x, y, 1); ``inv_n`` on the r of a signed
+batch with 0, 1, n - 1, n + 2 and 2^256 - 1 on lanes 0-4.
+
 The MSM engine's bounds count this run's data: ``msm_winreduce`` one mixed
 add per nonzero digit of a finite point (zero digits and infinite points
 add nothing), reading the table, digits and flags once; ``msm_finish`` four
@@ -72,7 +83,7 @@ import numpy as np
 import torch
 
 from secp256k1_zkp_tpu_torch import context
-from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig
+from secp256k1_zkp_tpu_torch.modules import ecdsa, generator, schnorrsig
 from secp256k1_zkp_tpu_torch.ops import (_build, cuda_field, cuda_gen,
                                          cuda_group, cuda_msm, cuda_scalar,
                                          cuda_sha256, msm)
@@ -141,6 +152,11 @@ OPS = {
     "msm_winreduce": ADD_AFF,
     # per lane and window (msm_bound; plus one ADD_JAC per partial)
     "msm_finish": 4 * DOUBLE,
+    # the affine conversion (inverse, Z^-2, Z^-3, x, y), Y*Z^3 (a square
+    # and two multiplies), the sqrt chain (253 S + 13 M) and the check r^2
+    "affine_meta": (MODINV + SQR + 3 * MUL + SQR + 2 * MUL
+                    + 253 * SQR + 13 * MUL + SQR),
+    "inv_n": MODINV,
 }
 # 32-bit elements read + written per lane
 WORDS = {
@@ -158,6 +174,8 @@ WORDS = {
     "fixedbase_blinded": 37 + 3 * 16,   # -b*G: 16 words for all lanes
     "gej_add": 3 * (3 * 16 + 1),
     "msm_table": 2 * 16 + 1 + 15 * 16,
+    "affine_meta": 3 * 16 + 2 * 16 + 1,
+    "inv_n": 16 + 16,
 }
 REPLACES = {
     "mulmod_chain": "secp256k1_zkp_tpu/ops/pallas_field.py:183",
@@ -179,6 +197,8 @@ REPLACES = {
     "msm_winreduce": "secp256k1_zkp_tpu/ops/pallas_msm.py:131",
     "msm_finish": "secp256k1_zkp_tpu/ops/pallas_msm.py:224 "
                   "(+ _collapse128 at :324)",
+    "affine_meta": "secp256k1_zkp_tpu/ops/pallas_field.py:431",
+    "inv_n": "secp256k1_zkp_tpu/ops/pallas_scalar.py:157",
 }
 SOURCES = {
     "mulmod_chain": "secp256k1_zkp_tpu_torch/csrc/mulmod_chain.cu",
@@ -197,6 +217,8 @@ SOURCES = {
     "msm_table": "secp256k1_zkp_tpu_torch/csrc/msm_table.cu",
     "msm_winreduce": "secp256k1_zkp_tpu_torch/csrc/msm_winreduce.cu",
     "msm_finish": "secp256k1_zkp_tpu_torch/csrc/msm_finish.cu",
+    "affine_meta": "secp256k1_zkp_tpu_torch/csrc/affine_meta.cu",
+    "inv_n": "secp256k1_zkp_tpu_torch/csrc/inv_n.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_digits", "ecmult_glv")
@@ -204,9 +226,14 @@ SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_digits",
                    "ecmult_glv", "schnorr_check")
 SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded")
 MSM_KERNELS = ("gej_add", "msm_table", "msm_winreduce", "msm_finish")
+COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
 # the collapse of msm_finish's lanes: one gej_add launch a halving level
 COLLAPSE_LEVELS = cuda_msm.FINISH_LANES.bit_length() - 1
 MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
+ASSET_TAGS = 64                   # generators made from this many tags
+# the tally's negative side: one commitment per asset tag and one that
+# carries the blinds (65 lanes: 7 levels of its add tree)
+TALLY_NEG_LANES = ASSET_TAGS + 1
 # RFC6979 with two candidates: four HMACs to seed the DRBG and three per
 # candidate, each HMAC two one-block compressions of the key block and two
 # hashes (inner, outer) of one launch each
@@ -236,7 +263,22 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
              "msm_winreduce": 2, "msm_finish": 2,
              "gej_add": 2 * COLLAPSE_LEVELS + 1},
          "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1,
-                 "gej_add": COLLAPSE_LEVELS}}
+                 "gej_add": COLLAPSE_LEVELS},
+         # b*G by the comb, v*H + b*G by GLV Strauss, the 33 bytes
+         "pedersen": {"fixedbase_digits": 1, "ecmult_glv": 1,
+                      "affine_meta": 1},
+         # both hashes in one launch (svdw is eager glue), H1 + H2 and
+         # + b*G, b*G by the comb, the affine point, its serialization
+         "generator_blinded": {"sha256": 1, "gej_add": 2,
+                               "fixedbase_digits": 1, "affine_xy": 1,
+                               "affine_meta": 1},
+         # r^-1, R's y, u1 and u2 (one launch), u2's split, u1*G, Q, affine
+         "recover": {"inv_n": 1, "lift_x": 1, "muladd_n": 1, "glv_only": 1,
+                     "fixedbase_digits": 1, "ecmult_glv": 1,
+                     "affine_xy": 1},
+         # two add trees: ceil(log2) levels of gej_add for each side
+         "tally": lambda n: {"gej_add": (n - 1).bit_length()
+                             + (TALLY_NEG_LANES - 1).bit_length()}}
 
 
 def path_launches(path: str, lanes: int) -> dict:
@@ -665,6 +707,237 @@ def make_msm(points: int, seed: int, dev):
             hc.mul(want) if want else None)
 
 
+# --- Pedersen commitments, generators, recovery: what the port must make ---
+
+_SVDW_C = pow(hc.P - 3, (hc.P + 1) // 4, hc.P)      # sqrt(-3)
+_SVDW_D = (_SVDW_C - 1) * pow(2, -1, hc.P) % hc.P
+
+
+def _host_svdw(t: int):
+    """The SvdW map with the reference's tie-breaking: x1 if its x^3 + 7 is
+    a square, else x2, else x3; y the principal root, negated for odd t
+    (modules/generator/main_impl.h:94-202)."""
+    P = hc.P
+    t2 = t * t % P
+    wd = (8 + t2) % P
+    x3d = -3 * t2 % P
+    jinv = pow(wd * x3d % P, P - 2, P)          # 0 at t = 0
+    x1 = (_SVDW_D - _SVDW_C * t2 % P * x3d % P * jinv) % P
+    x2 = -(x1 + 1) % P
+    x3 = (1 + wd * wd % P * wd % P * jinv) % P
+    for x in (x1, x2, x3):
+        y = pow((x ** 3 + 7) % P, (P + 1) // 4, P)
+        if y * y % P == (x ** 3 + 7) % P:
+            break
+    return x, (P - y if t & 1 else y)
+
+
+def _host_generator(key32: bytes):
+    """The NUMS generator of a key: svdw(SHA256("1st generation: " || key))
+    + svdw(SHA256("2nd generation: " || key))."""
+    ts = [int.from_bytes(hashlib.sha256(pre + key32).digest(), "big")
+          for pre in (b"1st generation: ", b"2nd generation: ")]
+    assert max(ts) < hc.P
+    return hc.add(_host_svdw(ts[0]), _host_svdw(ts[1]))
+
+
+def _ser33(pt, prefix: int) -> bytes:
+    """The 33-byte form: prefix, + 1 where y is no square, || x; infinity
+    as the commit pipeline writes it (prefix + 1, zeros)."""
+    if pt is None:
+        return bytes([prefix + 1]) + bytes(32)
+    square = pow(pt[1], (hc.P - 1) // 2, hc.P) == 1
+    return bytes([prefix + (not square)]) + _i32(pt[0])
+
+
+def _mul_jac(k: int, pt):
+    """k*P for any point, jacobian, by double-and-add on Python ints."""
+    acc, q = None, hc.jlift(pt)
+    for bit in bin(k)[2:]:
+        acc = hc.jdouble(acc)
+        if bit == "1":
+            acc = hc.jadd(acc, q)
+    return acc
+
+
+def make_pedersen_distinct(distinct: int, seed: int):
+    """``distinct`` commitment jobs from ``seed``: lane i commits a blind b_i
+    and a 40-bit value v_i to the generator H_i = A_(i mod 64) + r_i*G,
+    A_t the NUMS generator of asset tag t, r_i a generator blind.  What
+    committing must give, with Python ints and ``hashlib``: a dict of the
+    tags, the A_t, r_i, b_i, v_i, the H_i and the commitments' bytes."""
+    comb = _comb_ints()
+    rng = np.random.default_rng(seed + 5)
+    seedb = rng.bytes(32)
+    tags = [hashlib.sha256(seedb + b"tag%d" % j).digest()
+            for j in range(ASSET_TAGS)]
+    assets = [_host_generator(t) for t in tags]
+    rs = [int.from_bytes(hashlib.sha256(seedb + b"r%d" % i).digest(), "big")
+          % hc.N or 1 for i in range(distinct)]
+    bs = [int.from_bytes(hashlib.sha256(seedb + b"b%d" % i).digest(), "big")
+          % hc.N or 1 for i in range(distinct)]
+    vs = [int(v) for v in rng.integers(1, 1 << 40, distinct)]
+    gens = hc.batch_affine([hc.jadd(hc.jlift(assets[i % ASSET_TAGS]),
+                                    _mul_g(r, comb))
+                            for i, r in enumerate(rs)])
+    commits = hc.batch_affine([hc.jadd(_mul_g(b, comb), _mul_jac(v, g))
+                               for b, v, g in zip(bs, vs, gens)])
+    for i in range(0, distinct, max(distinct // 4, 1)):
+        assert gens[i] == hc.add(assets[i % ASSET_TAGS], hc.mul(rs[i]))
+        assert commits[i] == hc.add(hc.mul(bs[i]), hc.mul(vs[i], gens[i]))
+    return dict(tags=tags, assets=assets, rs=rs, bs=bs, vs=vs, gens=gens,
+                commits=np.array([np.frombuffer(_ser33(c, 8), np.uint8)
+                                  for c in commits]))
+
+
+def _ge_of(pts) -> GE:
+    """Affine Python-int points -> a ``GE`` on the CPU."""
+    return GE(LB(torch.tensor([_limbs(p[0]) for p in pts]), MASK16),
+              LB(torch.tensor([_limbs(p[1]) for p in pts]), MASK16),
+              torch.zeros(len(pts), dtype=torch.bool))
+
+
+def _u64_halves(vals):
+    v = torch.tensor(vals, dtype=torch.int64)
+    return v >> 32, v & 0xFFFFFFFF
+
+
+def make_generator_batch(base, lanes: int):
+    """``lanes`` blinded-generator jobs tiled from ``base``: (asset tag
+    bytes, generator blinds, on the CPU; the expected 33-byte forms of the
+    H_i as numpy)."""
+    idx = np.arange(lanes) % len(base["rs"])
+    tags = torch.tensor(np.array([np.frombuffer(base["tags"][i % ASSET_TAGS],
+                                                np.uint8) for i in idx]))
+    blinds = torch.tensor(np.array([np.frombuffer(_i32(base["rs"][i]),
+                                                  np.uint8) for i in idx]))
+    want = np.array([np.frombuffer(_ser33(base["gens"][i], 10), np.uint8)
+                     for i in range(len(base["rs"]))])
+    return tags, blinds, want[idx]
+
+
+def make_pedersen_batch(base, lanes: int, edges: bool = True):
+    """``lanes`` commitment jobs tiled from ``base``.  With ``edges``, lanes
+    1-5 are b = 0, v = 0, b >= n, an infinite generator and b = v = 0.
+    Returns (blind32, value hi, value lo, generators ``GE``, on the CPU;
+    expected bytes and ok as numpy)."""
+    d = len(base["bs"])
+    idx = np.arange(lanes) % d
+    bs = [base["bs"][i] for i in idx]
+    vs = [base["vs"][i] for i in idx]
+    gens = _ge_of([base["gens"][i] for i in range(d)])
+    gens = GE(LB(gens.x.v[idx], MASK16), LB(gens.y.v[idx], MASK16),
+              torch.zeros(lanes, dtype=torch.bool))
+    want = base["commits"][idx].copy()
+    ok = np.ones(lanes, bool)
+    if edges:
+        H = [base["gens"][i] for i in idx[:6]]
+        bs[1] = 0                                              # b = 0
+        vs[2] = 0                                              # v = 0
+        bs[3] = hc.N + 7                                       # b >= n
+        gens.inf[4] = True                                     # H infinite
+        bs[5] = vs[5] = 0                                      # infinity
+        for lane in range(1, 6):
+            pt = hc.add(hc.mul(bs[lane] % hc.N),
+                        None if lane == 4 else hc.mul(vs[lane], H[lane]))
+            want[lane] = np.frombuffer(_ser33(pt, 8), np.uint8)
+        ok[3:6] = False
+    blinds = torch.tensor(np.array([np.frombuffer(_i32(b), np.uint8)
+                                    for b in bs]))
+    hi, lo = _u64_halves(vs)
+    return blinds, hi, lo, gens, want, ok
+
+
+def make_tally(base, lanes: int):
+    """The negative side of a tally against the ``lanes`` commitments tiled
+    from ``base`` (no edge lanes): per asset tag t a commitment of the sum
+    of its values to A_t with blind 0, and one of value 0 whose blind is
+    sum(b_i + v_i r_i) mod n, so both sides sum to the same point; and the
+    same side off by one (tag 0's sum + 1).  Returns ((blind32, hi, lo,
+    generators ``GE``) balanced, the same off by one), on the CPU."""
+    d = len(base["bs"])
+    reps, rest = divmod(lanes, d)
+    count = [reps + (i < rest) for i in range(d)]
+    sums = [0] * ASSET_TAGS
+    beta = 0
+    for i in range(d):
+        sums[i % ASSET_TAGS] += count[i] * base["vs"][i]
+        beta += count[i] * (base["bs"][i] + base["vs"][i] * base["rs"][i])
+    blinds = torch.zeros((TALLY_NEG_LANES, 32), dtype=torch.uint8)
+    blinds[-1] = torch.tensor(list(_i32(beta % hc.N)), dtype=torch.uint8)
+    gens = _ge_of(base["assets"] + base["assets"][:1])
+    out = []
+    for extra in (0, 1):
+        vals = [sums[0] + extra] + sums[1:] + [0]
+        out.append((blinds, *_u64_halves(vals), gens))
+    return out
+
+
+def _bit1_r() -> int:
+    """The least r with r + n the x of a curve point: a signature whose
+    x(R) >= n, recovery id 2 or 3 (a random nonce gives one with
+    probability about 2^-128)."""
+    r = 1
+    while pow((pow(r + hc.N, 3, hc.P) + 7) % hc.P, (hc.P - 1) // 2,
+              hc.P) != 1:
+        r += 1
+    return r
+
+
+def _host_recover(msg32: bytes, r: int, s: int, recid: int):
+    """Q = r^-1 (s R - m G) with Python ints, or None where recovery must
+    refuse (modules/recovery/main_impl.h:87-121)."""
+    x = r + hc.N if recid & 2 else r
+    if not (0 < r < hc.N and 0 < s < hc.N) or x >= hc.P:
+        return None
+    y2 = (x ** 3 + 7) % hc.P
+    y = pow(y2, (hc.P + 1) // 4, hc.P)
+    if y * y % hc.P != y2:
+        return None
+    if (y & 1) != (recid & 1):
+        y = hc.P - y
+    m = int.from_bytes(msg32, "big") % hc.N
+    rinv = pow(r, -1, hc.N)
+    return hc.add(hc.mul(s * rinv % hc.N, (x, y)),
+                  hc.mul(-m * rinv % hc.N))
+
+
+# recovery's edge lanes, on lanes 3-7 of a signed batch: (what to set,
+# its value); the r = 0 / s = 0 of the refused keys are on lanes 0-2
+RECOVER_EDGES = (("s", 0), ("r", None), ("r", hc.P - hc.N + 3),
+                 ("r", None), ("r", hc.N + 1))
+
+
+def make_recover_batch(msgs, sig, recid, want_ok, pub):
+    """Recovery jobs from a signed batch (the port's own signatures): lanes
+    0-2 are the refused keys' zero signatures; lane 3 gets s = 0, lane 4
+    an x off the curve for r, lane 5 bit 1 with r >= p - n, lane 6 bit 1
+    with the least r whose r + n is on the curve (it recovers a key), lane
+    7 r >= n.  Returns (msg32, sig64, recid on the CPU; expected ok and
+    keys as numpy limbs)."""
+    sig, recid = sig.cpu().clone(), recid.cpu().clone()
+    ok = want_ok.copy()
+    kx, ky = pub.x.v.numpy().copy(), pub.y.v.numpy().copy()
+    bits = (0, 0, 2, 2, 0)
+    for j, ((what, val), rid) in enumerate(zip(RECOVER_EDGES, bits)):
+        lane = 3 + j
+        if val is None:
+            val = _not_on_curve_x() if j == 1 else _bit1_r()
+        cols = slice(32, 64) if what == "s" else slice(0, 32)
+        sig[lane, cols] = torch.tensor(list(_i32(val)), dtype=torch.uint8)
+        recid[lane] = rid
+        q = _host_recover(bytes(msgs[lane].tolist()),
+                          int.from_bytes(bytes(sig[lane, :32].tolist()),
+                                         "big"),
+                          int.from_bytes(bytes(sig[lane, 32:].tolist()),
+                                         "big"), rid)
+        ok[lane] = q is not None
+        if q is not None:
+            kx[lane], ky[lane] = _limbs(q[0]), _limbs(q[1])
+    assert ok[3:8].tolist() == [False, False, False, True, False]
+    return msgs, sig, recid, ok, kx, ky
+
+
 # --- host-made signatures: what the sign paths must return ------------------
 
 # the BIP-340 sign vectors (index, seckey, pubkey, aux, msg, sig): data from
@@ -1082,6 +1355,12 @@ def run_pair(name, t, use_ref: bool):
     if name == "msm_finish":
         f = cuda_msm.msm_finish_ref if use_ref else cuda_msm.msm_finish
         return f(t["x"], t["y"], t["z"], t["inf"], t["nwin"])
+    if name == "affine_meta":
+        f = cuda_field.affine_meta_ref if use_ref else cuda_field.affine_meta
+        return f(*t["R"])
+    if name == "inv_n":
+        f = cuda_scalar.inv_n_ref if use_ref else cuda_scalar.inv_n
+        return (f(t["x"]),)
     f = cuda_field.schnorr_check_ref if use_ref else cuda_field.schnorr_check
     return (f(*t["R"], t["rx"]),)
 
@@ -1284,6 +1563,48 @@ def main() -> int:
         if n in sizes:
             btensors[n] = {k: bsets[k] for k in MSM_KERNELS}
         del bsets
+    # commitments and recovery: affine_meta on the commit pipeline's
+    # jacobian result (caught from one pedersen_commit_bytes call) with
+    # z = 0, the weak z = p + 1, the weak zero z = p and y = 0 on lanes 0-3,
+    # and on the serializer's (x, y, 1); inv_n on the r of a signed batch
+    # with 0, 1, n - 1, n + 2 and 2^256 - 1 on lanes 0-4
+    t0 = time.time()
+    pbase = make_pedersen_distinct(distinct, args.seed)
+    pbatches = {n: make_pedersen_batch(pbase, n) for n in (*sizes, ragged)}
+    emit("data", what="pedersen", seconds=round(time.time() - t0, 2))
+    ptensors, rtensors = {}, {}
+    meta_target = {"affine_meta": (cuda_field, "affine_meta")}
+    for n in (*sizes, ragged):
+        blinds, hi, lo, gens = pbatches[n][:4]
+        _, seen = catch(lambda: generator.pedersen_commit_bytes(
+            blinds, hi, lo, gens, device=dev), meta_target)
+        x, y, z = (c.clone() for c in seen["affine_meta"][0][0])
+        for lane, v in ((0, 0), (1, hc.P + 1), (2, hc.P)):
+            z[:, lane] = torch.tensor(_limbs(v), dtype=torch.int32)
+        y[:, 3] = 0
+        ptensors[n] = dict(R=(x, y, z))
+        _, seen = catch(lambda: generator.generator_serialize(gens.to(dev)),
+                        meta_target)
+        r, _, _ = ecdsa.sig_parse_compact(
+            torch.from_numpy(gbatches[n][2]).to(dev))
+        xr = ecdsa.kernel_rows(r)
+        for lane, v in enumerate((0, 1, hc.N - 1, hc.N + 2, 2 ** 256 - 1)):
+            xr[:, lane] = torch.tensor(_limbs(v), dtype=torch.int32)
+        rtensors[n] = dict(x=xr)
+        for name, t, shape in (
+                ("affine_meta", ptensors[n], "commit path, edge lanes 0-3"),
+                ("affine_meta", dict(R=seen["affine_meta"][0][0]),
+                 "generator serializer, z = 1"),
+                ("inv_n", rtensors[n], "recovery's r, edge lanes 0-4")):
+            err, plain_ms = compare(name, t)
+            record(name, f"{n} lanes, {shape}", err, plain_ms)
+            if shape.startswith("generator"):
+                continue
+            if n == sizes[0]:
+                results[name]["plain_ms"] = plain_ms
+            elif n in sizes:
+                results[name][f"plain_ms_{n}"] = plain_ms
+        del seen
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -1332,6 +1653,7 @@ def main() -> int:
             bad |= want_ok & (recid.cpu().numpy() != want_recid)
         return int(bad.sum())
 
+    port_sigs = {}                # the port's ECDSA signatures, to recover
     for n in sizes:
         msgs, secs, want_sig, want_recid, want_ok, pub = gbatches[n]
         sig, recid, ok = counted("ecdsa_sign",
@@ -1339,6 +1661,7 @@ def main() -> int:
         assert sig.shape == (n, 64) and sig.dtype == torch.uint8 \
             and sig.is_cuda and recid.shape == (n,) and ok.shape == (n,)
         wrong = wrong_lanes(sig, ok, want_sig, want_ok, recid, want_recid)
+        port_sigs[n] = sig, recid
         vok = counted("ecdsa", lambda: ecdsa.verify(msgs, sig, pub,
                                                     device=dev))
         unverified = int((ok & ~vok).sum())
@@ -1429,6 +1752,78 @@ def main() -> int:
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at "
                          f"{MSM_POINTS} points: {bad}")
+    # blinded generators from the 64 asset tags (at the first size only:
+    # svdw is eager glue, ~2 x 10^5 launches a call whatever the batch),
+    # commitments to them, the tally, recovery of the signers' keys
+    gtags, gblinds, gwant = make_generator_batch(pbase, sizes[0])
+
+    def generate_and_serialize():
+        h, ok = generator.generator_generate(gtags, gblinds, device=dev)
+        return h, ok, generator.generator_serialize(h)
+
+    t1 = time.perf_counter()
+    hgen, hok, hser = counted("generator_blinded", generate_and_serialize)
+    gen_s = time.perf_counter() - t1
+    wrong = int(((hser.cpu().numpy() != gwant).any(1)
+                 | ~hok.cpu().numpy()).sum())
+    emit("main_path", path="generator_blinded", lanes=sizes[0],
+         wrong_lanes=wrong, seconds=gen_s,
+         launches=PATHS["generator_blinded"])
+    if wrong:
+        raise SystemExit(f"generator_generate wrong on {wrong} lanes")
+    rdata = {}
+    for n in sizes:
+        blinds, hi, lo, pgens, want, want_ok = pbatches[n]
+        # the port's generators, tiled as the jobs are; lane 4 infinite
+        idx = torch.arange(n, device=dev) % sizes[0]
+        gens = GE(LB(hgen.x.v[idx], MASK16), LB(hgen.y.v[idx], MASK16),
+                  pgens.inf.to(dev))
+        c33, cok = counted("pedersen", lambda: generator.pedersen_commit_bytes(
+            blinds, hi, lo, gens, device=dev))
+        assert c33.shape == (n, 33) and c33.is_cuda and cok.shape == (n,)
+        wrong = int(((c33.cpu().numpy() != want).any(1)
+                     | (cok.cpu().numpy() != want_ok)).sum())
+        pt, pok = generator.pedersen_commitment_parse(c33[cok], device=dev)
+        unparsed = int((~pok).sum() + (generator.pedersen_commitment_serialize(
+            pt) != c33[cok]).any(1).sum())
+        # the tally: the commitments without edge lanes against one per
+        # asset tag and one carrying the blinds, balanced and off by one
+        pos, pos_ok = generator.pedersen_commit(
+            *make_pedersen_batch(pbase, n, edges=False)[:4], device=dev)
+        verdicts = []
+        for side in make_tally(pbase, n):
+            neg, neg_ok = generator.pedersen_commit(*side, device=dev)
+            if not (pos_ok.all() and neg_ok.all()):
+                raise SystemExit(f"tally inputs at {n} lanes not committed")
+            ok = counted("tally", lambda: generator.pedersen_verify_tally(
+                pos, neg), n)
+            assert ok.shape == () and ok.dtype == torch.bool and ok.is_cuda
+            verdicts.append(bool(ok))
+        emit("main_path", path="pedersen", lanes=n, ok=int(cok.sum()),
+             wrong_lanes=wrong, parse_roundtrip_wrong=unparsed,
+             tally_balanced=verdicts[0], tally_off_by_one=verdicts[1],
+             launches=PATHS["pedersen"],
+             launches_tally=path_launches("tally", n))
+        if wrong or unparsed or verdicts != [True, False]:
+            raise SystemExit(f"pedersen wrong at {n} lanes: {wrong} "
+                             f"commitments, {unparsed} parsed, tally "
+                             f"{verdicts}")
+        del pos, neg
+        msgs, _, _, _, sign_ok, pub = gbatches[n]
+        rm, rs, rr, rok, kx, ky = make_recover_batch(msgs, *port_sigs[n],
+                                                     sign_ok, pub)
+        rdata[n] = rm, rs, rr
+        q, qok = counted("recover", lambda: ecdsa.recover(rm, rs, rr,
+                                                          device=dev))
+        assert qok.shape == (n,) and qok.is_cuda and q.x.v.shape == (n, 16)
+        qok = qok.cpu().numpy()
+        bad_key = ((q.x.v.cpu().numpy() != kx).any(1)
+                   | (q.y.v.cpu().numpy() != ky).any(1))
+        wrong = int(((qok != rok) | (rok & bad_key)).sum())
+        emit("main_path", path="recover", lanes=n, ok=int(qok.sum()),
+             wrong_lanes=wrong, launches=PATHS["recover"])
+        if wrong:
+            raise SystemExit(f"recover wrong on {wrong} of {n} lanes")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
     if idle:
         raise SystemExit(f"main path never launched: {idle}")
@@ -1457,6 +1852,9 @@ def main() -> int:
                          stensors))
         if name in SIGN_KERNELS:
             runs.append(("", sign_sets[name]))
+        if name in COMMIT_RECOVER_KERNELS:
+            runs.append(("", {"affine_meta": ptensors,
+                              "inv_n": rtensors}[name]))
         for pre, tset in runs:
             chain = (CHAIN_N if chain64 else
                      SHA_VERIFY_BLOCKS if name == "sha256" else 1)
@@ -1512,7 +1910,11 @@ def main() -> int:
               "signatures_per_s"),
              ("schnorr.batch_verify", schnorrsig.batch_verify,
               {n: bbatches[n][0]["valid"] for n in sizes}, 3,
-              "verifies_per_s"))
+              "verifies_per_s"),
+             ("generator.pedersen_commit_bytes",
+              generator.pedersen_commit_bytes, pbatches, 4,
+              "commitments_per_s"),
+             ("ecdsa.recover", ecdsa.recover, rdata, 3, "recoveries_per_s"))
     rates = {}
     for label, entry, data, nargs, rate in calls:
         for n in sizes:
@@ -1562,6 +1964,24 @@ def main() -> int:
     emit("profile", name="ecmult_multi", points=MSM_POINTS,
          profiled_wall_ms=wall, device_ms=dev_ms, kernels=nkern,
          device_busy_share=dev_ms / ms, top=top)
+
+    # one blinded generator_generate at the first size (its cost is the
+    # eager svdw: the profile counts its launches)
+    on_dev = (gtags.to(dev), gblinds.to(dev))
+
+    def whole_gen():
+        generator.generator_generate(*on_dev, device=dev)
+        torch.cuda.synchronize()
+
+    t1 = time.perf_counter()
+    whole_gen()
+    ms = (time.perf_counter() - t1) * 1e3
+    emit("timing", name="generator.generator_generate_blinded",
+         lanes=sizes[0], ms=ms, generators_per_s=sizes[0] / ms * 1e3)
+    wall, dev_ms, nkern, top = profile_call(whole_gen)
+    emit("profile", name="generator.generator_generate_blinded",
+         lanes=sizes[0], profiled_wall_ms=wall, device_ms=dev_ms,
+         kernels=nkern, device_busy_share=dev_ms / ms, top=top)
 
     emit("total", seconds=round(time.time() - t_start, 1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

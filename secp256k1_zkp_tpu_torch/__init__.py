@@ -5,24 +5,32 @@ file; PyTorch idiom inside: plain functions on tensors, small dataclasses
 of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
 
 ======================  ====================================================
-``ops.limb``            batched base-2^16 modular bignum engine (int64 limbs)
-``ops.field``           GF(p) instance
-``ops.scalar``          GF(n) instance
-``ops.group``           point containers (``GE``/``GEJ``) and constructors
-``ops.sha256``          SHA-256 and BIP-340 tagged hashes (plain PyTorch)
+``ops.limb``            batched base-2^16 modular bignum engine (int64 limbs),
+                        fixed-window powers
+``ops.field``           GF(p) instance: ``sqrt``, ``is_square``, ``inv``
+``ops.scalar``          GF(n) instance: ``inv`` (the ``inv_n`` kernel)
+``ops.group``           point containers (``GE``/``GEJ``), ``gej_add``(``_ge``),
+                        ``gej_eq``, ``ge_from_gej``
+``ops.msm``             ``ecmult_multi`` and the ``gej_add`` tree ``_tree_reduce``
+``ops.sha256``          SHA-256, HMAC, RFC6979 and BIP-340 tagged hashes
 ``ops.cuda_sha256``     the SHA-256 compression kernel
 ``ops.cuda_field``      mod-p library + ``mulmod_chain``, ``lift_x``,
-                        ``schnorr_check``
+                        ``schnorr_check``, ``affine_meta``
 ``ops.cuda_divsteps``   safegcd modular inverse, plain version
-``ops.cuda_scalar``     mod-n library + the ECDSA *prep* and GLV-split kernels
-``ops.cuda_group``      complete group formulas + the GLV Strauss kernel
-``ops.cuda_gen``        fixed-base comb tables, digit rows + kernel
-``modules.ecdsa``       batched ECDSA verify (the kernel pipeline)
-``modules.schnorrsig``  batched BIP-340 ``lift_x`` and verify
+``ops.cuda_scalar``     mod-n library + the ECDSA *prep*, GLV-split and
+                        ``inv_n`` kernels
+``ops.cuda_group``      complete group formulas + GLV Strauss, ``gej_add``
+``ops.cuda_gen``        fixed-base comb + the sign epilogue kernels
+``ops.cuda_msm``        the fused windowed-table MSM engine
+``modules.ecdsa``       batched ECDSA verify, sign, recover
+``modules.recovery``    recoverable signatures (65-byte form)
+``modules.schnorrsig``  batched BIP-340 ``lift_x``, verify, sign, batch verify
+``modules.generator``   NUMS generators, Pedersen commitments, tally
+``context``             selftest, generator blinding
 ``utils.hostcurve``     Python-int curve for table generation
 ``utils.sha256_host``   host SHA-256 compression for tag midstates
 ``utils.convert``       tables and containers of the JAX package -> port
-``csrc/``               the CUDA C++ sources of the eight kernels
+``csrc/``               the CUDA C++ sources of the seventeen kernels
 ======================  ====================================================
 
 Importing the package needs no CUDA, no compiler and no Triton: the

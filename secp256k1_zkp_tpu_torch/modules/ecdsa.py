@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's ``modules/ecdsa.py``: ``sig_parse_compact``,
 ``verify`` (the kernel pipeline of ``verify_tpu``), the RFC6979 nonces
-(``rfc6979_nonce``, ``_pick_nonce``) and ``sign`` (the kernel pipeline of
-``sign_tpu``: deterministic nonces, low-S, recovery id).  ``recover`` and
-``modules/recovery.py`` wait for the portable ``ops/ecmult.py`` they run
-on in the JAX package.
+(``rfc6979_nonce``, ``_pick_nonce``), ``sign`` (the kernel pipeline of
+``sign_tpu``: deterministic nonces, low-S, recovery id),
+``recover_scalars`` / ``recover`` (public-key recovery, on the same
+kernels as verify — the JAX package runs it on its portable ``ecmult``;
+the values are the same) and ``signature_normalize``.
 
 Batched-first: byte tensors are ``[B, 32]`` / ``[B, 64]`` uint8; the result
 is a per-lane ``ok`` mask instead of an int return code.
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..config import resolve_device
-from ..ops import cuda_gen, cuda_group, cuda_scalar
+from ..ops import cuda_field, cuda_gen, cuda_group, cuda_scalar
 from ..ops import field as F
 from ..ops import scalar as S
 from ..ops import sha256 as H
@@ -128,3 +129,81 @@ def sign(msg32, sec32, blind=None, device="cuda"):
     sig64 = torch.cat([S.to_bytes_be(from_rows(r_t)),
                        S.to_bytes_be(from_rows(s_t))], -1)
     return sig64 * ok[:, None], recid, ok
+
+
+def recover_scalars(m, r, s, recid):
+    """Public-key recovery on parsed scalars ``LB`` ``[B, 16]`` and recovery
+    ids ``[B]`` (ecdsa_sig_recover, modules/recovery/main_impl.h:87-121):
+    Q = r^-1 (s R - m G), R the point with x = r (+ n where recid bit 1 is
+    set) and y of recid bit 0's parity.  Returns (Q ``GE``, ok ``[B]``) on
+    the scalars' device.
+
+    ok is false where r = 0 or s = 0, where bit 1 is set but r + n is not
+    below p, where x is not on the curve (R enters GLV Strauss as an
+    infinite point, so the kernel runs with G in its place and masks it),
+    and where Q is infinity.  The kernels: ``inv_n`` for r^-1, ``lift_x``
+    for R's y, ``muladd_n`` for u2 = r^-1 s and u1 = -r^-1 m (both halves in
+    one launch), ``glv_only`` for u2's split, the comb for u1*G, GLV
+    Strauss for u1*G + u2*R and ``affine_xy`` for Q: seven launches on a
+    card, their plain versions on the CPU."""
+    lanes = r.v.shape[0]
+    recid = torch.as_tensor(recid).to(r.device).to(torch.int64)
+    i64 = torch.int64
+    r_t = kernel_rows(S.normalize(r))
+    m_t = kernel_rows(S.normalize(m)).to(i64)
+    s_t = kernel_rows(S.normalize(s))
+    # x = r, or (r + n) mod p where bit 1 is set, which must stay below p
+    add_n = (recid & 2) == 2
+    xr = r_t.to(i64)
+    x_hi = cuda_field.canon_p(cuda_field.weak_p(
+        xr + cuda_field.const_rows(S.N, xr)))
+    x_t = torch.where(add_n[None, :], x_hi, xr).to(torch.int32)
+    fits = ~add_n | ~cuda_scalar._is_gt_const(xr, F.P - S.N - 1)
+    # R's y: the even root, negated where recid asks for an odd one
+    ye, y_ok = cuda_field.lift_x(x_t)
+    want_odd = (recid & 1) == 1
+    y_t = torch.where(want_odd[None, :],
+                      cuda_field._neg_canon(ye.to(i64)).to(torch.int32), ye)
+    rinv = cuda_scalar.inv_n(r_t)
+    us = cuda_gen.muladd_n(
+        torch.zeros((16, 2 * lanes), dtype=torch.int32, device=r.device),
+        torch.cat([rinv, rinv], 1),
+        torch.cat([s_t, cuda_scalar._neg_mod_n(m_t).to(torch.int32)], 1),
+        torch.zeros(2 * lanes, dtype=torch.bool, device=r.device))
+    u2, u1 = us[:, :lanes].contiguous(), us[:, lanes:].contiguous()
+    digs, flags = cuda_scalar.glv_only(u2)
+    gjac = cuda_gen.fixedbase_digits(cuda_gen.gen_digits(u1))
+    x, y, z, inf, _ = cuda_group.ecmult_glv(digs, flags, x_t, y_t, ~y_ok,
+                                            gjac, rx=None)
+    qx, qy = cuda_gen.affine_xy(x, y, z)
+    ok = y_ok & fits & ~inf & ~S.is_zero(r) & ~S.is_zero(s)
+    return GE(from_rows(qx), from_rows(qy), inf), ok
+
+
+def recover(msg32, sig64, recid, device="cuda"):
+    """Recover the signing public keys from compact signatures ``[B, 64]``,
+    messages ``[B, 32]`` and recovery ids ``[B]`` -> (Q ``GE``, ok ``[B]``)
+    on ``device`` (default ``"cuda"``, which raises when there is no
+    card).  ok is also false where r or s overflowed n.  See
+    :func:`recover_scalars` for the kernels."""
+    dev = resolve_device(device)
+    msg32 = torch.as_tensor(msg32).to(dev)
+    sig64 = torch.as_tensor(sig64).to(dev)
+    if msg32.dim() != 2:
+        raise ValueError("recover expects a 1-D batch: msg32 [B, 32]")
+    r, s, sig_ok = sig_parse_compact(sig64)
+    m, _ = S.from_bytes_be(msg32)
+    if msg32.shape[0] == 0:                  # nothing to launch
+        return GE(r, r, sig_ok.clone()), sig_ok
+    q, ok = recover_scalars(m, r, s, recid)
+    return q, ok & sig_ok
+
+
+def signature_normalize(sig64, device="cuda"):
+    """Lower-S form of compact signatures ``[..., 64]``
+    (ecdsa_signature_normalize) -> (sig64, was_high ``[...]`` bool)."""
+    sig64 = torch.as_tensor(sig64).to(resolve_device(device))
+    s, _ = S.from_bytes_be(sig64[..., 32:])
+    high = S.is_high(s)
+    s = S.select(high, S.normalize(S.neg(s)), S.normalize(s))
+    return torch.cat([sig64[..., :32], S.to_bytes_be(s)], -1), high

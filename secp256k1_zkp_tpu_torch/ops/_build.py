@@ -53,6 +53,8 @@ _SIGNATURES = {
     "secp_msm_table": [_VP] * 4 + [_INT, _VP],
     "secp_msm_winreduce": [_VP] * 7 + [_INT] * 4 + [_VP],
     "secp_msm_finish": [_VP] * 8 + [_INT] * 3 + [_VP],
+    "secp_affine_meta": [_VP] * 6 + [_INT, _VP],
+    "secp_inv_n": [_VP, _VP, _INT, _VP],
 }
 
 _LIB = None
@@ -62,7 +64,7 @@ LAUNCH_COUNTS: dict[str, int] = {
     "ecmult_glv": 0, "lift_x": 0, "glv_only": 0, "schnorr_check": 0,
     "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
     "fixedbase_blinded": 0, "gej_add": 0, "msm_table": 0,
-    "msm_winreduce": 0, "msm_finish": 0}
+    "msm_winreduce": 0, "msm_finish": 0, "affine_meta": 0, "inv_n": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,11 +1,12 @@
 """GF(p) limb arithmetic of the kernel library: plain PyTorch versions and
-the ``mulmod_chain``, ``lift_x`` and ``schnorr_check`` kernels.
+the ``mulmod_chain``, ``lift_x``, ``schnorr_check`` and ``affine_meta``
+kernels.
 
 Counterpart of the JAX package's ``ops/pallas_field.py`` (``_mul_limbs``,
 ``_sqr_limbs``, ``_reduce_cols``, ``_canon_p``, ``mulmod_chain``,
-``lift_x_tpu``, ``schnorr_check_tpu``).  A 256-bit element is
-**limb-major**: ``[16, B]`` base-2^16 limbs with the batch innermost, the
-layout of every kernel operand.  Kernel operands and
+``lift_x_tpu``, ``schnorr_check_tpu``, ``affine_meta_tpu``).  A 256-bit
+element is **limb-major**: ``[16, B]`` base-2^16 limbs with the batch
+innermost, the layout of every kernel operand.  Kernel operands and
 results are ``int32`` (the bits of the reference's ``uint32``); the plain
 versions compute in ``int64``.
 
@@ -265,3 +266,53 @@ def schnorr_check(x, y, z, inf, rx):
         rx.data_ptr(), ok.data_ptr(), lanes, _build.stream_ptr()),
         "schnorr_check")
     return ok != 0
+
+
+# ---------------------------------------------------------------------------
+# Jacobian -> affine, and the quadratic character of y (serialization)
+# ---------------------------------------------------------------------------
+
+
+def affine_plain(x, y, z):
+    """Jacobian -> canonical affine int64 limbs; z = 0 gives zeros."""
+    X, Y, Z = (t.to(I64) for t in (x, y, z))
+    zinv = inv_limbs16(canon_p(Z), P_PRIME)                # inv(0) = 0
+    zi2 = sqr_limbs(zinv)
+    zi3 = mul_limbs(zi2, zinv)
+    return canon_p(mul_limbs(X, zi2)), canon_p(mul_limbs(Y, zi3))
+
+
+def affine_meta_ref(x, y, z):
+    """Plain version of :func:`affine_meta` (any device)."""
+    xa, ya = affine_plain(x, y, z)
+    Y, Z = y.to(I64), z.to(I64)
+    t = canon_p(mul_limbs(Y, mul_limbs(sqr_limbs(Z), Z)))
+    root = (canon_p(sqr_limbs(pow_sqrt(t))) == t).all(0)
+    sq = root & ~(t == 0).all(0)
+    return xa.to(torch.int32), ya.to(torch.int32), sq
+
+
+def affine_meta(x, y, z):
+    """Jacobian (x, y, z) ``[16, B]`` int32 limbs -> (x, y canonical affine
+    ``[16, B]`` int32, sq ``[B]`` bool): sq says y is a nonzero square,
+    read as the quadratic character of Y*Z^3.  Infinity lanes (z = 0, or
+    the weak zero z = p) give zeros and sq false — false also where Y = 0,
+    where ``field.is_square`` would say true (it counts 0 as a square).
+
+    CUDA tensors go through the hand-written kernel
+    (``csrc/affine_meta.cu``); CPU tensors through the plain version."""
+    if not x.is_cuda:
+        return affine_meta_ref(x, y, z)
+    lanes = _build.check_rows(x, LIMBS, "affine_meta x")
+    _build.check_rows(y, LIMBS, "affine_meta y", lanes)
+    _build.check_rows(z, LIMBS, "affine_meta z", lanes)
+    ax = torch.empty_like(x)
+    ay = torch.empty_like(x)
+    sq = torch.empty((lanes,), dtype=torch.int32, device=x.device)
+    lib = _build.lib()
+    _build.count_launch("affine_meta")
+    _build.check(lib.secp_affine_meta(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), ax.data_ptr(),
+        ay.data_ptr(), sq.data_ptr(), lanes, _build.stream_ptr()),
+        "affine_meta")
+    return ax, ay, sq != 0

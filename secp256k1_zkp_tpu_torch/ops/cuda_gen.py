@@ -33,8 +33,8 @@ import torch
 from . import _build
 from ..utils import hostcurve as hc
 from .cuda_divsteps import inv_limbs16
-from .cuda_field import (I64, LIMBS, MASK16, P_PRIME, canon_p, const_rows,
-                         limbs16, mul_limbs, ripple, sqr_limbs)
+from .cuda_field import (I64, LIMBS, MASK16, affine_plain, canon_p,
+                         const_rows, limbs16, ripple)
 from .cuda_group import (FE, fe_const, fe_neg, fe_select, fe_weak,
                          jp_add_aff, jp_inf)
 from .cuda_scalar import (N_ORDER, NW7, _RED, _N_HALF, _add_mod_n,
@@ -196,18 +196,9 @@ def ecmult_gen(k: torch.Tensor, blind: Blind | None = None):
 # ---------------------------------------------------------------------------
 
 
-def _affine_plain(x, y, z):
-    """Jacobian -> canonical affine int64 limbs; z = 0 gives zeros."""
-    X, Y, Z = (t.to(I64) for t in (x, y, z))
-    zinv = inv_limbs16(canon_p(Z), P_PRIME)                # inv(0) = 0
-    zi2 = sqr_limbs(zinv)
-    zi3 = mul_limbs(zi2, zinv)
-    return canon_p(mul_limbs(X, zi2)), canon_p(mul_limbs(Y, zi3))
-
-
 def affine_xy_ref(x, y, z):
     """Plain version of :func:`affine_xy` (any device)."""
-    xa, ya = _affine_plain(x, y, z)
+    xa, ya = affine_plain(x, y, z)
     return xa.to(I32), ya.to(I32)
 
 
@@ -234,7 +225,7 @@ def affine_xy(x, y, z):
 
 def ecdsa_sign_finish_ref(x, y, z, k, m, d):
     """Plain version of :func:`ecdsa_sign_finish` (any device)."""
-    xa, ya = _affine_plain(x, y, z)
+    xa, ya = affine_plain(x, y, z)
     k, m, d = k.to(I64), m.to(I64), d.to(I64)
     # r = x mod n; x >= n  <=>  x + (2^256 - n) carries out (the overflow
     # flag of the reference)

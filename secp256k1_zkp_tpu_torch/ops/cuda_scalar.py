@@ -5,10 +5,11 @@ Counterpart of the JAX package's ``ops/pallas_scalar.py``: ``mul_limbs_n``,
 ``canon_n``, ``mul_shift384_round``, ``glv_split``, ``recode_signed`` as
 plain PyTorch on limb-major ``[K, B]`` int64 rows, and ``ecdsa_prep`` —
 s^-1 (safegcd), u1 = m/s, u2 = r/s, the GLV lambda split of u2 and the
-signed digit rows the two point kernels consume — and ``glv_only``, the
-split and recoding alone (``glv_split_tpu``).  Every output of both is a
-canonical quantity (digits, flags), so kernel, plain version and the JAX
-helpers agree bit for bit.
+signed digit rows the two point kernels consume — ``glv_only``, the
+split and recoding alone (``glv_split_tpu``), and ``inv_n``, x^-1 mod n
+(``inv_n_tpu``).  Every output is a canonical quantity (digits, flags,
+canonical limbs), so kernel, plain version and the JAX helpers agree bit
+for bit (the JAX inverse after canonicalisation: its result is weak).
 """
 
 from __future__ import annotations
@@ -277,3 +278,31 @@ def glv_only(k: torch.Tensor):
         k.data_ptr(), digs.data_ptr(), flags.data_ptr(), lanes,
         _build.stream_ptr()), "glv_only")
     return digs, flags
+
+
+# ---------------------------------------------------------------------------
+# x^-1 mod n
+# ---------------------------------------------------------------------------
+
+
+def inv_n_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`inv_n` (any device)."""
+    return inv_limbs16(canon_n(x.to(I64)), N_ORDER).to(torch.int32)
+
+
+def inv_n(x: torch.Tensor) -> torch.Tensor:
+    """x^-1 mod n on ``[16, B]`` int32 limb-major scalars (limbs <= 0xFFFF,
+    any value < 2^256: reduced mod n first); returns the canonical
+    inverse, ``[16, B]`` int32, with inv(0) = 0.
+
+    CUDA tensors go through the hand-written kernel (``csrc/inv_n.cu``);
+    CPU tensors through the plain version."""
+    if not x.is_cuda:
+        return inv_n_ref(x)
+    lanes = _build.check_rows(x, LIMBS, "inv_n x")
+    out = torch.empty_like(x)
+    lib = _build.lib()
+    _build.count_launch("inv_n")
+    _build.check(lib.secp_inv_n(x.data_ptr(), out.data_ptr(), lanes,
+                                _build.stream_ptr()), "inv_n")
+    return out

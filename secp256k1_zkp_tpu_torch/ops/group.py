@@ -1,16 +1,17 @@
 """secp256k1 point containers on PyTorch tensors.
 
 Counterpart of the containers and constructors of the JAX package's
-``ops/group.py``, and of the three formulas batch verify needs there:
-``gej_add``, ``gej_eq`` and ``ge_from_gej``.  Points are
-structure-of-arrays dataclasses: each coordinate is a batched limb tensor
-and infinity is an explicit lane mask.  ``gej_add`` is the ``gej_add``
-kernel on a card (its plain version on the CPU); ``gej_eq`` and
-``ge_from_gej`` are plain PyTorch on either device, as the JAX package
-computes them outside any Pallas kernel.  The other portable formulas
-(``gej_double``, ``gej_add_ge``, ...) and ``ops/ecmult.py`` are not
-ported yet; the complete formulas the kernels use live in
-``ops/cuda_group.py``.
+``ops/group.py``, and of the formulas batch verify, Pedersen commitments
+and generators need there: ``gej_from_ge``, ``gej_add``, ``gej_add_ge``,
+``gej_eq`` and ``ge_from_gej``.  Points are structure-of-arrays
+dataclasses: each coordinate is a batched limb tensor and infinity is an
+explicit lane mask.  ``gej_add`` (and ``gej_add_ge``, with z = 1) is the
+``gej_add`` kernel on a card, ``ge_from_gej`` the ``affine_xy`` kernel —
+their plain versions on the CPU; ``gej_eq`` is plain PyTorch on either
+device, as the JAX package computes it outside any Pallas kernel.  The
+other portable formulas (``gej_double``, ``gej_add_zinv``, ...) and
+``ops/ecmult.py`` are not ported yet; the complete formulas the kernels
+use live in ``ops/cuda_group.py``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ import dataclasses
 
 import torch
 
-from . import cuda_group
+from . import cuda_gen, cuda_group
 from . import field as F
-from .cuda_divsteps import inv_limbs16
 from .cuda_field import canon_p, mul_limbs, sqr_limbs
-from .limb import LB, LIMBS, MASK16, from_rows, kernel_rows
+from .limb import LB, LIMBS, from_rows, kernel_rows
 
 
 @dataclasses.dataclass
@@ -95,6 +95,11 @@ def gej_infinity(batch_shape=(), device="cpu") -> GEJ:
                torch.ones(batch_shape, dtype=torch.bool, device=device))
 
 
+def gej_from_ge(a: GE) -> GEJ:
+    """(x, y) -> (x, y, 1), the infinity mask kept."""
+    return GEJ(a.x, a.y, F.FP.one(a.batch_shape, a.device), a.inf)
+
+
 def gej_add(a: GEJ, b: GEJ) -> GEJ:
     """Complete general addition a + b (any batch shape, both alike):
     P + P, P + (-P) and infinity operands included.  Through
@@ -107,6 +112,12 @@ def gej_add(a: GEJ, b: GEJ) -> GEJ:
         tuple(kernel_rows(F.norm_weak(c)) for c in (b.x, b.y, b.z))
         + (b.inf.reshape(-1),))
     return GEJ(*(from_rows(t, shape) for t in (x, y, z)), inf.reshape(shape))
+
+
+def gej_add_ge(a: GEJ, b: GE) -> GEJ:
+    """a + b for an affine b: :func:`gej_add` with b's z = 1 (the same
+    kernel; complete, infinity operands included)."""
+    return gej_add(a, gej_from_ge(b))
 
 
 def gej_eq(a: GEJ, b: GEJ):
@@ -135,12 +146,11 @@ def gej_eq(a: GEJ, b: GEJ):
 
 
 def ge_from_gej(a: GEJ) -> GE:
-    """Affine conversion, one safegcd inverse per lane (the plain
-    ``cuda_divsteps`` version; inv(0) = 0, so infinite lanes give zeros
-    beside their flag)."""
+    """Affine conversion through ``cuda_gen.affine_xy``: the kernel on CUDA
+    tensors, its plain version on CPU tensors (one safegcd inverse a
+    lane; inv(0) = 0, so lanes with z = 0 give zeros beside their
+    flag)."""
     shape = a.batch_shape
-    zinv = inv_limbs16(kernel_rows(F.normalize(a.z)).to(torch.int64), F.P)
-    zi = LB(zinv.T.reshape(*shape, LIMBS), MASK16)
-    zi2 = F.sqr(zi)
-    return GE(F.normalize(F.mul(a.x, zi2)),
-              F.normalize(F.mul(F.mul(a.y, zi2), zi)), a.inf)
+    x, y = cuda_gen.affine_xy(*(kernel_rows(F.norm_weak(c))
+                                for c in (a.x, a.y, a.z)))
+    return GE(from_rows(x, shape), from_rows(y, shape), a.inf)

@@ -13,8 +13,10 @@ the limbs the JAX version computes.  Conversion to ``int32`` (same bits
 as the kernels' ``uint32``) happens only at the kernel boundary, in the
 wrappers of ``ops/cuda_*.py``.
 
-``Mod.inv``/``pow_const`` are not ported yet: the ECDSA-verify slice takes
-its inverses inside the kernels (safegcd, ``ops/cuda_divsteps.py``).
+``Mod.pow_const``/``Mod.inv`` are the JAX package's fixed-window Fermat
+chain, as portable eager code on both devices (the field's ``sqrt``,
+``is_square`` and ``inv`` run on it); the kernels take their inverses by
+safegcd (``csrc/modinv.cuh``, ``ops/cuda_divsteps.py``).
 """
 
 from __future__ import annotations
@@ -363,6 +365,33 @@ class Mod:
         assert a.v.shape[-1] == b.v.shape[-1]
         return LB(torch.where(mask[..., None], a.v, b.v),
                   max(a.bound, b.bound))
+
+    # -- exponentiation ----------------------------------------------------
+    def pow_const(self, x: LB, e: int) -> LB:
+        """x^e for a Python-int exponent by 4-bit fixed windows, MSB first:
+        a table x^0..x^15, then per window 4 squarings and one multiply by
+        the table entry (x^0 = 1 for a zero digit) — the uniform dataflow
+        of the JAX version, its ``lax.scan`` a Python loop here.  Weak
+        result (limbs <= 0xFFFF, value < 2^256); 0^e = 0 for e > 0."""
+        assert e >= 0
+        if e == 0:
+            return self.one(x.batch_shape, x.device)
+        x = self.norm_if_needed(x)
+        table = [self.one(x.batch_shape, x.device), x]
+        for _ in range(14):
+            table.append(self.mul(table[-1], x))
+        ndig = (e.bit_length() + 3) // 4
+        digits = [(e >> (4 * i)) & 15 for i in reversed(range(ndig))]
+        acc = table[digits[0]]
+        for d in digits[1:]:
+            for _ in range(4):
+                acc = self.sqr(acc)
+            acc = self.mul(acc, table[d])
+        return acc
+
+    def inv(self, x: LB) -> LB:
+        """x^-1 by Fermat, x^(m-2); inv(0) = 0.  Weak result."""
+        return self.pow_const(x, self.modulus - 2)
 
     # -- bytes -------------------------------------------------------------
     def from_bytes_be(self, b: torch.Tensor):

@@ -1,13 +1,16 @@
 """GF(n) for secp256k1 (the group order), on PyTorch tensors.
 
 Thin instance of :class:`ops.limb.Mod`, counterpart of the JAX package's
-``ops/scalar.py``.  ``inv`` waits for the slice that needs
-``Mod.pow_const``; ECDSA verify inverts inside its prep kernel.
+``ops/scalar.py``.  ``inv`` is the ``inv_n`` kernel on a card (safegcd)
+and its plain version on the CPU, where the JAX package powers by n - 2:
+the same canonical values.
 """
 
 from __future__ import annotations
 
-from .limb import LB, LIMBS, MASK16, Mod, _const, _ks_carry, lb_from_int
+from . import cuda_scalar
+from .limb import (LB, LIMBS, MASK16, Mod, _const, _ks_carry, from_rows,
+                   kernel_rows, lb_from_int)
 
 N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 
@@ -47,6 +50,19 @@ def is_high(a: LB):
     comp = _const([(c >> (16 * i)) & MASK16 for i in range(LIMBS)], x.v)
     _, carry = _ks_carry(x.v + comp)
     return carry > 0
+
+
+def inv(a: LB) -> LB:
+    """a^-1 mod n, canonical; inv(0) = 0.  Through ``cuda_scalar.inv_n``:
+    the kernel on CUDA tensors, its plain version on CPU tensors."""
+    out = cuda_scalar.inv_n(kernel_rows(FN.normalize(a)))
+    return from_rows(out, a.batch_shape)
+
+
+def cond_negate(a: LB, mask) -> LB:
+    """n - a where mask (weak), a elsewhere."""
+    a = FN.norm_if_needed(a)
+    return select(mask, FN.norm_weak(neg(a)), a)
 
 
 def to_bytes_be(a: LB):

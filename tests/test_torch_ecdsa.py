@@ -185,7 +185,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import torch\n"
         "import secp256k1_zkp_tpu_torch as t\n"
         "from secp256k1_zkp_tpu_torch import context, config\n"
-        "from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig\n"
+        "from secp256k1_zkp_tpu_torch.modules import (ecdsa, generator,\n"
+        "    recovery, schnorrsig)\n"
         "from secp256k1_zkp_tpu_torch.ops import (_build, cuda_divsteps,\n"
         "    cuda_field, cuda_gen, cuda_group, cuda_msm, cuda_scalar,\n"
         "    cuda_sha256, field, group, limb, msm, scalar, sha256)\n"
@@ -200,13 +201,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "           cuda_gen.muladd_n, sha256.hmac_sha256, sha256.RFC6979,\n"
         "           convert.blind_from_jax, schnorrsig.batch_verify,\n"
         "           msm.ecmult_multi, cuda_msm.msm_windowed,\n"
-        "           cuda_group.gej_add, group.gej_eq):\n"
+        "           cuda_group.gej_add, group.gej_eq, ecdsa.recover,\n"
+        "           recovery.recover, generator.generator_generate,\n"
+        "           generator.pedersen_commit_bytes, cuda_field.affine_meta,\n"
+        "           cuda_scalar.inv_n, scalar.inv, msm._tree_reduce):\n"
         "    assert callable(fn)\n"
         "pt = group.generator((1,))\n"
         "r = msm.ecmult_multi(limb.LB(torch.tensor([[2] + [0] * 15]),\n"
         "                             0xFFFF), pt, device='cpu')\n"
         "assert group.gej_eq(r, group.gej_add(\n"
         "    *[group.GEJ(pt.x, pt.y, field.FP.one((1,)), pt.inf)] * 2))\n"
+        "h, ok = generator.generator_generate(torch.zeros((1, 32),\n"
+        "    dtype=torch.uint8), device='cpu')\n"
+        "c, cok = generator.pedersen_commit_bytes(torch.ones((1, 32),\n"
+        "    dtype=torch.uint8), [0], [5], h, device='cpu')\n"
+        "assert bool(ok[0] & cok[0]) and int(c[0, 0]) in (8, 9)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'secp256k1_zkp_tpu'\n"
         "       or m.startswith('secp256k1_zkp_tpu.') or m == 'triton']\n"

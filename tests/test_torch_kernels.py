@@ -178,7 +178,7 @@ def _point_with_x_at_least_n():
         t += 1
 
 
-def test_ecmult_glv_vs_ints():
+def test_ecmult_glv_vs_ints(monkeypatch):
     rng = np.random.default_rng(33)
     t_small, r0 = _point_with_x_at_least_n()
     pts = [hc.mul(k or 1) for k in rand(rng, N, 4)]
@@ -235,6 +235,10 @@ def test_ecmult_glv_vs_ints():
     # without rx the check is off and ok is all-false
     *_, ok2 = TG.ecmult_glv(digs, flags, px, py, pinf, gjac)
     assert not ok2.any()
+    # the commitment pipeline on the comb and GLV Strauss (rx=None) with
+    # the affine_meta kernel after them: tests/test_torch_pedersen.py
+    from test_torch_pedersen import check_pedersen_generators_and_commitments
+    check_pedersen_generators_and_commitments(monkeypatch)
 
 
 def test_comb_table_matches_jax_and_hostcurve():

@@ -218,3 +218,6 @@ def test_c_entry_points_match_ctypes_signatures():
             "msm_finish.cu", "msm.cuh"} <= {p.name for p in _build.sources()}
     assert {"secp_gej_add", "secp_msm_table", "secp_msm_winreduce",
             "secp_msm_finish"} <= set(entries)
+    # the commitment and recovery slice's: affine_meta (B10), inv_n (B15b)
+    assert {"affine_meta.cu", "inv_n.cu"} <= {p.name for p in _build.sources()}
+    assert {"secp_affine_meta", "secp_inv_n"} <= set(entries)

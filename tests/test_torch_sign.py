@@ -117,6 +117,10 @@ def test_ecdsa_sign():
     with pytest.raises(ValueError, match="1-D batch"):
         ecdsa.sign(msg_t[0], sec_t[0], device="cpu")
     _refuses_the_default_device(lambda: ecdsa.sign(msg_t, sec_t))
+    # recovering the signers' keys, and the scalar inverse it takes:
+    # tests/test_torch_recovery.py
+    from test_torch_recovery import check_recover_and_the_scalar_inverse
+    check_recover_and_the_scalar_inverse()
 
 
 def test_schnorr_sign():
