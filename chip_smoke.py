@@ -32,13 +32,34 @@ exits non-zero and prints no result.
 
 Bounds: ``bound_ms`` is the larger of bytes/3.35 TB/s (each operand read
 once, each result written once) and operations/67 TOP/s, the card's
-published non-tensor rate, with a 32-bit multiply-add counted as two
-operations.  Only the arithmetic the function needs is counted (field
-multiplies per doubling and addition, additions per window, divsteps per
-inverse; written out in ``OPS`` below).  The full-table select scans are
-a choice of the kernels, not arithmetic of k*G, and are not in the bound.
-SHA-256 is counted in 32-bit logic and add operations, one operation each
-(a rotate is one; ``SHA_BLOCK`` below), i.e. half a multiply-add.
+published float32 rate outside the tensor cores, with a 32-bit
+multiply-add counted as two operations — so a 32-bit integer
+multiply-add is priced as a float32 FMA.  Only the arithmetic the
+function needs is counted (field multiplies per doubling and addition,
+additions per window, divsteps per inverse; written out in ``OPS``
+below).  The full-table select scans are a choice of the kernels, not
+arithmetic of k*G, and are not in the bound.  SHA-256 is counted in
+32-bit logic and add operations, one operation each (a rotate is one;
+``SHA_BLOCK`` below), i.e. half a multiply-add.
+
+For ``ecmult_glv`` and ``msm_winreduce`` a second figure,
+``bound_int_ms``, prices the same multiply-adds (``OPS``) at the integer
+multiply-add rate: 64 a clock on each SM for compute capability 9.0 (the
+CUDA programming guide's table of arithmetic instructions), half the
+float32 rate, i.e. 67/4 = 16.75 T multiply-adds/s.  Phase ``build``
+(key ``sass``) reads from ``cuobjdump -sass`` of a probe of
+``fe_mul_to`` / ``fe_sqr_to`` how many instructions this build spends on
+one field multiply and one squaring: the true multiplies (``IMAD``,
+``IMAD.WIDE``, ``IMAD.HI``), the whole IMAD family (which also carries
+adds with carry and shifts) and all instructions, less the probe's loads
+and stores.  ``bound_ms`` stays the column that ranks the kernels.
+
+Phase ``build`` fails if ``ecmult_glv_kernel`` or ``msm_winreduce_kernel``
+reports a stack or a spill in ``ptxas -v``; phase ``timing`` gives the
+warps per SM of each one's launch
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and a sweep of
+``msm_winreduce``'s lane chunks (nblk) with the ``msm_finish`` that
+follows, at 16,384, 262,144 and 2^20 points.
 
 ``mulmod_chain`` is on the main path only through ``context.selftest``
 (one or two lanes, chains of 1 to 16 multiplies); its ``ms``, ``plain_ms``
@@ -78,6 +99,7 @@ import subprocess
 import sys
 import time
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -100,6 +122,9 @@ PEAK_OPS_PER_S = 67e12
 CHAIN_N = 64                      # multiplies a lane in the chain64 timing
 
 # --- operation model (32-bit multiply-adds per lane) -----------------------
+# bound_of prices each at the 67 TOP/s float32 rate (2 operations); the
+# integer multiply-add rate is half that (PEAK_IMAD_PER_S, bound_int_ms)
+PEAK_IMAD_PER_S = PEAK_OPS_PER_S / 4   # 64 IMAD a clock an SM, not 128
 MUL = 64 + 8                      # 8x8 words + the fold by 977
 SQR = 28 + 8 + 8                  # off-diagonal once, diagonal, fold
 DOUBLE = 5 * SQR + 2 * MUL        # gej_double
@@ -221,6 +246,8 @@ SOURCES = {
     "inv_n": "secp256k1_zkp_tpu_torch/csrc/inv_n.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
+# kernels whose ptxas -v must read 0 bytes stack and 0 spills
+STACK_FREE = ("ecmult_glv_kernel", "msm_winreduce_kernel")
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_digits", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_digits",
                    "ecmult_glv", "schnorr_check")
@@ -230,6 +257,9 @@ COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
 # the collapse of msm_finish's lanes: one gej_add launch a halving level
 COLLAPSE_LEVELS = cuda_msm.FINISH_LANES.bit_length() - 1
 MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
+# msm_winreduce chunk counts timed beside the chosen one: at 64 windows
+# from about two warps an SM of 132 (one block an SM at most) to many waves
+NBLK_SWEEP = (4, 8, 16, 33, 66, 132, 264, 528, 1056, 2112)
 ASSET_TAGS = 64                   # generators made from this many tags
 # the tally's negative side: one commitment per asset tag and one that
 # carries the blinds (65 lanes: 7 levels of its add tree)
@@ -291,20 +321,101 @@ def emit(phase: str, **kw) -> None:
 
 
 def ptxas_summary(log: str) -> dict:
-    """``nvcc -Xptxas -v`` output -> {kernel: "N registers, S B stack"}
-    for each ``__global__`` entry function."""
-    out, cur = {}, None
+    """``nvcc -Xptxas -v`` output -> {kernel: {registers, stack (cumulative
+    bytes), frame, spill_stores, spill_loads}} for each ``__global__``
+    entry function."""
+    out, cur, props, pending = {}, None, {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)", ln)
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            cur = m.group(1)
+            cur = ("_Z" + m.group(1) + m.group(2),
+                   m.group(2)[:int(m.group(1))])
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            pending = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and pending:
+            props[pending] = tuple(int(g) for g in m.groups())
+            pending = None
             continue
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes cumulative "
                       r"stack size)?", ln)
         if m and cur:
-            out[cur] = f"{m.group(1)} registers, {m.group(2) or 0} B stack"
+            frame, st, ld = props.get(cur[0], (0, 0, 0))
+            out[cur[1]] = dict(registers=int(m.group(1)),
+                               stack=int(m.group(2) or 0), frame=frame,
+                               spill_stores=st, spill_loads=ld)
             cur = None
     return out
+
+
+# the field multiply and squaring of fe.cuh as they compile into a kernel,
+# and the same loads and stores without them, for the SASS count
+SASS_PROBE = r"""
+#include "fe.cuh"
+__global__ void probe_mul(const fe* a, const fe* b, fe* r) {
+    int i = threadIdx.x;
+    fe x = a[i], y = b[i], z;
+    fe_mul_to(z, x, y);
+    r[i] = z;
+}
+__global__ void probe_mul_base(const fe* a, const fe* b, fe* r) {
+    int i = threadIdx.x;
+    fe x = a[i], y = b[i], z;
+    for (int w = 0; w < 8; ++w) z.v[w] = x.v[w] ^ y.v[w];
+    r[i] = z;
+}
+__global__ void probe_sqr(const fe* a, fe* r) {
+    int i = threadIdx.x;
+    fe x = a[i], z;
+    fe_sqr_to(z, x);
+    r[i] = z;
+}
+__global__ void probe_sqr_base(const fe* a, fe* r) {
+    int i = threadIdx.x;
+    r[i] = a[i];
+}
+"""
+
+
+def sass_counts() -> dict:
+    """Compile SASS_PROBE for sm_90a and count, from ``cuobjdump -sass``,
+    the instructions of one field multiply and one squaring: true
+    multiplies ("mul": IMAD, IMAD.U32, IMAD.WIDE*, IMAD.HI*), the IMAD
+    family ("imad": those and IMAD.X, IMAD.SHL, IMAD.IADD, ...; not
+    IMAD.MOV, a register move) and all ("all")."""
+    nvcc = _build.find_nvcc()
+    work = _build.BUILD_DIR / "sass_probe"
+    work.mkdir(parents=True, exist_ok=True)
+    src, cubin = work / "probe.cu", work / "probe.cubin"
+    src.write_text(SASS_PROBE)
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(_build.SRC_DIR), str(src),
+                    "-o", str(cubin)], check=True, capture_output=True)
+    dump = subprocess.run(
+        [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
+        check=True, capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for ln in dump.splitlines():
+        m = re.search(r"Function : _Z(\d+)(\w+)", ln)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+            cur = counts.setdefault(name, {"mul": 0, "imad": 0, "all": 0})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", ln)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur["all"] += 1
+            op = m.group(1)
+            cur["imad"] += op.startswith("IMAD") and not op.startswith(
+                "IMAD.MOV")
+            cur["mul"] += op in ("IMAD", "IMAD.U32") or op.startswith(
+                ("IMAD.WIDE", "IMAD.HI"))
+    return {k: {c: counts[f"probe_{k}"][c] - counts[f"probe_{k}_base"][c]
+                for c in ("mul", "imad", "all")} for k in ("mul", "sqr")}
 
 
 def profile_call(fn):
@@ -345,6 +456,12 @@ def bound_ms(name: str, lanes: int, chain: int = 1):
     what sets it."""
     words = WORDS[name] + (16 * chain if name == "sha256" else 0)
     return bound_of(OPS[name] * chain * lanes, words * 4 * lanes)
+
+
+def int_bound(name: str, units: int) -> float:
+    """Least ms for ``units`` lanes (adds, for msm_winreduce) of kernel
+    ``name``'s multiply-adds (``OPS``) at the integer multiply-add rate."""
+    return units * OPS[name] / PEAK_IMAD_PER_S * 1e3
 
 
 def msm_bound(name: str, t: dict):
@@ -1374,6 +1491,13 @@ AS_POINTS = {
         *out, cuda_msm.FINISH_LANES)}
 
 
+# weak and carry-heavy field operands (p <= x < 2^256, all-ones words, and
+# words where 3 * a carries everywhere) for the field multiply's PTX chains
+FE_EDGES = (0, 1, 2, hc.P - 1, hc.P, hc.P + 1, 2 ** 256 - 1, 2 ** 256 - 2,
+            2 ** 256 - 2 ** 32 - 978, 2 ** 255,
+            int("55555555FFFFFFFF" * 4, 16), 0x55555555FFFFFFFF << 192)
+
+
 def compare(name, t):
     """Kernel against plain version on ``t``: (max abs err, plain ms by
     the host clock around one fenced call)."""
@@ -1427,11 +1551,22 @@ def main() -> int:
     _build.lib()
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln.lower()]
+    kinfo = ptxas_summary(_build.build_log())
+    sass = sass_counts()
     emit("build", seconds=round(time.time() - t0, 2),
          nvcc_seconds=_build.BUILD_SECONDS, sources=len(_build.sources()),
-         kernels=ptxas_summary(_build.build_log()),
+         kernels={k: f"{v['registers']} registers, {v['stack']} B stack, "
+                  f"{v['spill_stores']}/{v['spill_loads']} B spill "
+                  f"stores/loads" for k, v in kinfo.items()},
+         sass=sass,
          spills=[ln for ln in ptxas if "spill" in ln
                  and not ln.startswith("0 bytes stack frame, 0 bytes spill")])
+    # the redesigned kernels run on the stack-free core (csrc/fe.cuh)
+    for k in STACK_FREE:
+        v = kinfo.get(k)
+        if v is None or v["stack"] or v["frame"] or v["spill_stores"] \
+                or v["spill_loads"]:
+            raise SystemExit(f"{k}: ptxas reports a stack or a spill: {v}")
 
     # -- phase 3: kernels against their plain versions ----------------------
     # the verify kernels at both main-path batches and at a ragged one, on
@@ -1482,6 +1617,15 @@ def main() -> int:
         record("mulmod_chain", f"selftest [16, {t['px'].shape[1]}], "
                f"n = {t['chain']}", err, plain_ms)
         results["mulmod_chain"]["plain_ms"] = plain_ms      # longest last
+    for chain in (1, 3):
+        edge_t = dict(chain=chain, **{k: torch.tensor(
+            [_limbs(v) for v in vals], dtype=torch.int32, device=dev).T
+            .contiguous() for k, vals in (
+                ("px", [a for a in FE_EDGES for _ in FE_EDGES]),
+                ("py", [b for _ in FE_EDGES for b in FE_EDGES]))})
+        err, _ = compare("mulmod_chain", edge_t)
+        record("mulmod_chain", f"{len(FE_EDGES) ** 2} pairs of weak and "
+               f"carry-heavy operands, n = {chain}", err, 0.0)
     sha_selftest = dict(
         sha_state=cuda_sha256.words_to_rows(torch.tensor(
             [list(H._INIT)], dtype=torch.int64, device=dev)),
@@ -1889,18 +2033,46 @@ def main() -> int:
                                          bound_by=b_by)
                 emit("timing", name=pre + name, points=n, lanes=lanes, ms=ms,
                      bound_ms=b_ms, bound_by=b_by)
-    # msm_winreduce's lane chunks (cuda_msm.winreduce_blocks): the chosen
-    # nblk against a quarter of it up to four times it, same operands
+    # the warps an SM holds for ecmult_glv's and msm_winreduce's launches;
+    # both kernels' integer-rate figure beside the bound
+    lib = _build.lib()
+    for n in sizes:
+        warps = lib.secp_ecmult_glv_warps(n)
+        results["ecmult_glv"][f"warps_per_sm_{n}"] = warps
+        results["ecmult_glv"][f"bound_int_ms_{n}"] = int_bound(
+            "ecmult_glv", n)
+        emit("timing", name="ecmult_glv", lanes=n, warps_per_sm=warps)
+    results["msm_winreduce"]["warps_per_sm"] = lib.secp_msm_winreduce_warps()
+    for n, tsets in ((sizes[0], btensors[sizes[0]]),
+                     (sizes[1], btensors[sizes[1]]), (MSM_POINTS, msets)):
+        for pre, t in ((("", tsets["msm_winreduce"][0]),) if n == MSM_POINTS
+                       else (("", tsets["msm_winreduce"][1]),
+                             ("128bit_", tsets["msm_winreduce"][0]))):
+            nnz = int(((t["digs"] != 0) & ~t["pinf"][None, :]).sum())
+            results["msm_winreduce"][f"{pre}bound_int_ms_{n}"] = int_bound(
+                "msm_winreduce", nnz)
+    # msm_winreduce's lane chunks (cuda_msm.winreduce_blocks): ms of the
+    # window reduce and of the msm_finish after it by nblk, from two warps
+    # an SM up, on both MSMs of batch verify and on the 2^20-point MSM
     for n, t in ((sizes[0], btensors[sizes[0]]["msm_winreduce"][1]),
+                 (sizes[0], btensors[sizes[0]]["msm_winreduce"][0]),
+                 (sizes[1], btensors[sizes[1]]["msm_winreduce"][1]),
+                 (sizes[1], btensors[sizes[1]]["msm_winreduce"][0]),
                  (MSM_POINTS, msets["msm_winreduce"][0])):
-        lanes, sweep = t["digs"].shape[1], {}
-        for f in (0.25, 0.5, 1, 2, 4):
-            chunk = -(-lanes // max(1, round(t["nblk"] * f)))
+        nwin, lanes = t["digs"].shape
+        most = -(-lanes // cuda_msm.WR_THREADS)
+        sweep = {}
+        for want in sorted({t["nblk"], *(k for k in NBLK_SWEEP if k <= most)}):
+            chunk = -(-lanes // want)
             nblk = -(-lanes // chunk)
-            sweep[nblk] = time_ms(lambda: cuda_msm.msm_winreduce(
-                t["digs"], t["tab"], t["pinf"], nblk))
-        emit("timing", name="msm_winreduce_nblk", points=n,
-             chosen=t["nblk"], ms_by_nblk=sweep)
+            parts = cuda_msm.msm_winreduce(t["digs"], t["tab"], t["pinf"],
+                                           nblk)
+            sweep[nblk] = [
+                time_ms(lambda: cuda_msm.msm_winreduce(
+                    t["digs"], t["tab"], t["pinf"], nblk)),
+                time_ms(lambda: cuda_msm.msm_finish(*parts, nwin))]
+        emit("timing", name="msm_winreduce_nblk", points=n, nwin=nwin,
+             chosen=t["nblk"], ms_winreduce_finish_by_nblk=sweep)
     # whole calls: (name, entry point, batches, tensor arguments, rate key)
     calls = (("ecdsa.verify", ecdsa.verify, batches, 3, "verifies_per_s"),
              ("schnorr.verify", schnorrsig.verify, sbatches, 3,

@@ -8,8 +8,11 @@
 // lane innermost), so neighbouring threads read neighbouring addresses.
 //
 // The device functions compile as plain C++ too (the macros below fall
-// away), which lets a host harness exercise the arithmetic without a card.
+// away), which lets a host harness exercise the arithmetic without a card:
+// tests/test_torch_kernels.py builds one with g++ and holds the field and
+// group core against Python integers.
 #pragma once
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -75,6 +78,108 @@ SECP_INLINE void bn_mul(uint32_t* t, const uint32_t* a, const uint32_t* b) {
         t[i + NB] = (uint32_t)c;
     }
 }
+
+// --- carry-chain primitives ----------------------------------------------
+// One PTX instruction each on the card; a chain is a run of them in which
+// every *c* form consumes the carry flag that the one before it set
+// (CC.CF: the carry of an add, the borrow of a subtract).  Each is an
+// `asm volatile`, so the compiler keeps them in program order; nothing
+// else in the code between them touches the flag (only the .cc/c forms
+// of PTX do).  This is the shape of GPU big-integer code (sppark,
+// ICICLE): the 8x8-word product runs as carry chains of mad.lo.cc /
+// madc.hi.cc instead of a 64-bit add and shift after each multiply.
+//
+// Under a plain C++ compiler (the host harness) the same names compute the
+// same words with 64-bit arithmetic and keep the flag in secp_cf, so the
+// chains built from them below are one code for both: the CPU test of
+// this portable branch checks the chains' structure, and chip_smoke.py
+// holds the PTX against the plain PyTorch versions on the card.
+#ifdef __CUDACC__
+#define SECP_CC1(name, op)                                                 \
+    static __device__ __forceinline__ uint32_t name(uint32_t a,            \
+                                                    uint32_t b) {         \
+        uint32_t r;                                                        \
+        asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));        \
+        return r;                                                          \
+    }
+#define SECP_CC2(name, op)                                                 \
+    static __device__ __forceinline__ uint32_t name(uint32_t a,            \
+                                                    uint32_t b,            \
+                                                    uint32_t c) {          \
+        uint32_t r;                                                        \
+        asm volatile(op " %0, %1, %2, %3;"                                 \
+                     : "=r"(r) : "r"(a), "r"(b), "r"(c));                  \
+        return r;                                                          \
+    }
+SECP_CC1(add_cc, "add.cc.u32")      // a + b
+SECP_CC1(addc_cc, "addc.cc.u32")    // a + b + CF
+SECP_CC1(addc, "addc.u32")          // a + b + CF, flag not set
+SECP_CC1(sub_cc, "sub.cc.u32")      // a - b
+SECP_CC1(subc_cc, "subc.cc.u32")    // a - b - CF
+SECP_CC1(subc, "subc.u32")          // a - b - CF, flag not set
+SECP_CC2(mad_lo_cc, "mad.lo.cc.u32")    // lo(a*b) + c
+SECP_CC2(madc_lo_cc, "madc.lo.cc.u32")  // lo(a*b) + c + CF
+SECP_CC2(mad_hi_cc, "mad.hi.cc.u32")    // hi(a*b) + c
+SECP_CC2(madc_hi_cc, "madc.hi.cc.u32")  // hi(a*b) + c + CF
+SECP_CC2(madc_hi, "madc.hi.u32")        // hi(a*b) + c + CF, flag not set
+#undef SECP_CC1
+#undef SECP_CC2
+// hi(a*b), and hi(a*b) + c: no flag
+static __device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+    return __umulhi(a, b);
+}
+static __device__ __forceinline__ uint32_t mad_hi(uint32_t a, uint32_t b,
+                                                  uint32_t c) {
+    return __umulhi(a, b) + c;
+}
+#else
+static uint32_t secp_cf;            // the carry flag of the portable branch
+
+static inline uint32_t cc_out(u64 t) {
+    secp_cf = (uint32_t)(t >> 32) & 1u;
+    return (uint32_t)t;
+}
+static inline uint32_t bw_out(u64 t) {
+    secp_cf = (uint32_t)(t >> 63);
+    return (uint32_t)t;
+}
+static inline uint32_t lo32(uint32_t a, uint32_t b) { return a * b; }
+static inline uint32_t mul_hi(uint32_t a, uint32_t b) {
+    return (uint32_t)(((u64)a * b) >> 32);
+}
+static inline uint32_t add_cc(uint32_t a, uint32_t b) {
+    return cc_out((u64)a + b);
+}
+static inline uint32_t addc_cc(uint32_t a, uint32_t b) {
+    return cc_out((u64)a + b + secp_cf);
+}
+static inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + secp_cf; }
+static inline uint32_t sub_cc(uint32_t a, uint32_t b) {
+    return bw_out((u64)a - b);
+}
+static inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+    return bw_out((u64)a - b - secp_cf);
+}
+static inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - secp_cf; }
+static inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return cc_out((u64)lo32(a, b) + c);
+}
+static inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return cc_out((u64)lo32(a, b) + c + secp_cf);
+}
+static inline uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return cc_out((u64)mul_hi(a, b) + c);
+}
+static inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return cc_out((u64)mul_hi(a, b) + c + secp_cf);
+}
+static inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+    return mul_hi(a, b) + c + secp_cf;
+}
+static inline uint32_t mad_hi(uint32_t a, uint32_t b, uint32_t c) {
+    return mul_hi(a, b) + c;
+}
+#endif
 
 #ifdef __CUDACC__
 extern "C" const char* secp_cuda_error_string(int code);

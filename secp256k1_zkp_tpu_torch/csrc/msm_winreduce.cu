@@ -5,11 +5,21 @@
 // msm_windowed_tpu).  The TPU runs a grid (window, block) whose block axis
 // is sequential and carries a per-lane accumulator in VMEM.  Blocks on
 // this card run in parallel and in no order, so the shape is different:
-// grid (lane chunk, window); each thread folds a strided run of its
-// chunk's lanes into a jacobian accumulator with complete mixed adds; a
-// shared-memory tree of complete jacobian adds reduces the block's 128
-// accumulators; one partial point per (window, chunk) goes out, canonical,
-// at column w * nblk + chunk of [16, nwin * nblk].  msm_finish sums them.
+// each partial (window w, lane chunk c) is one warp's.  Its 32 threads fold
+// strided runs of the chunk's lanes (lo + t, lo + t + 32, ...) into
+// jacobian accumulators in registers with complete mixed adds, then a
+// 5-level warp-shuffle tree of complete jacobian adds leaves the sum in
+// thread 0, which writes it canonical at column w * nblk + c of
+// [16, nwin * nblk].  No shared memory, no block barrier.  msm_finish sums
+// the partials.
+//
+// Reuse across windows: a block is SECP_WR_WARPS consecutive windows of
+// one chunk, and the grid runs the windows fastest, so the warps that run
+// at one time walk the same few chunks in step and read the same 960-byte
+// table rows (and the same flags) within a short time: after the first
+// window's read a row comes from L1 or L2, not from device memory (the
+// table is 960 MiB at 2^20 points, the L2 50 MB).  Each thread issues the
+// loads of its next lane's entry before the add of the current one.
 //
 // The scalars of every caller are public (batch verification and the
 // verifiers of the protocols built on ecmult_multi; the reference's
@@ -20,29 +30,49 @@
 // select scan.
 //
 // Bound on this card: operations — one mixed add (7M + 5S) per lane and
-// window against 64 bytes of table and 8 bytes of digit and flag.
+// window against 64 bytes of table and 8 bytes of digit and flag.  The
+// whole fold runs on the force-inlined core of group.cuh: no stack.
 #include "msm.cuh"
 
-#define SECP_WR_THREADS 128
+#define SECP_WR_WARPS 4              // windows (warps) per block
+// at most 168 registers; at 4 blocks (128) ptxas spills.  The wrapper's
+// chunking (ops/cuda_msm.py, WR_PARTIALS) runs two blocks an SM.
+#define SECP_WR_MIN_BLOCKS 3
 
-// this thread's share of lanes [lo, hi): lo + start, lo + start + step, ...
-SECP_DEV jp msm_winreduce_fold(const uint32_t* digs, const uint32_t* tab,
-                               const uint32_t* pinf, int N, int w, int lo,
-                               int hi, int start, int step) {
-    jp acc = jp_infinity();
-#pragma unroll 1
-    for (int i = lo + start; i < hi; i += step) {
-        uint32_t d = digs[(size_t)w * N + i] & 15u;
-        if (d == 0 || (pinf[i] & 1u)) continue;
-        fe x, y;
-        msm_entry_load(tab, (size_t)i * SECP_MSM_NENT + d - 1, x, y);
-        acc = jp_add_aff(acc, x, y, 0);
+// the first lane at or after i (stepping by 32) whose digit is nonzero and
+// whose point is finite; hi if none.  *d gets its digit.
+SECP_INLINE int wr_next(const uint32_t* dw, const uint32_t* pinf, int i,
+                        int hi, uint32_t* d) {
+    for (; i < hi; i += 32) {
+        *d = dw[i] & 15u;
+        if (*d != 0 && !(pinf[i] & 1u)) break;
     }
-    return acc;
+    return i;
 }
 
-SECP_DEV void msm_partial_store(uint32_t* ox, uint32_t* oy, uint32_t* oz,
-                                uint32_t* oinf, int M, int col, const jp& r) {
+// this thread's run of lanes i, i + 32, ... < hi of window digits dw
+SECP_INLINE void msm_winreduce_fold(jp& acc, const uint32_t* dw,
+                                    const uint32_t* tab,
+                                    const uint32_t* pinf, int i, int hi) {
+    acc = jp_infinity();
+    uint32_t d = 0, dn = 0;
+    fe x, y, nx, ny;
+    i = wr_next(dw, pinf, i, hi, &d);
+    if (i < hi) msm_entry_load(tab, (size_t)i * SECP_MSM_NENT + d - 1, x, y);
+    while (i < hi) {
+        int j = wr_next(dw, pinf, i + 32, hi, &dn);
+        if (j < hi)                     // in flight during the add below
+            msm_entry_load(tab, (size_t)j * SECP_MSM_NENT + dn - 1, nx, ny);
+        jp_add_aff_to(acc, acc, x, y, 0);
+        x = nx;
+        y = ny;
+        i = j;
+    }
+}
+
+SECP_INLINE void msm_partial_store(uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                                   uint32_t* oinf, int M, int col,
+                                   const jp& r) {
     store16(ox, M, col, fe_canon(r.x));
     store16(oy, M, col, fe_canon(r.y));
     store16(oz, M, col, fe_canon(r.z));
@@ -50,26 +80,35 @@ SECP_DEV void msm_partial_store(uint32_t* ox, uint32_t* oy, uint32_t* oz,
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(SECP_WR_THREADS)
+SECP_INLINE void fe_shfl_down(fe& r, const fe& a, int s) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+        r.v[i] = __shfl_down_sync(0xFFFFFFFFu, a.v[i], s);
+}
+
+__global__ void __launch_bounds__(SECP_WR_WARPS * 32, SECP_WR_MIN_BLOCKS)
 msm_winreduce_kernel(const uint32_t* digs, const uint32_t* tab,
                      const uint32_t* pinf, uint32_t* ox, uint32_t* oy,
-                     uint32_t* oz, uint32_t* oinf, int N, int nblk,
+                     uint32_t* oz, uint32_t* oinf, int N, int nwin, int nblk,
                      int chunk) {
-    __shared__ jp sh[SECP_WR_THREADS];
-    const int b = blockIdx.x, w = blockIdx.y, t = threadIdx.x;
-    const int lo = b * chunk;
+    const int t = threadIdx.x & 31;
+    const int w = blockIdx.x * SECP_WR_WARPS + (threadIdx.x >> 5);
+    const int c = blockIdx.y;
+    if (w >= nwin) return;              // whole warps only
+    const int lo = c * chunk;
     const int hi = min(N, lo + chunk);
-    sh[t] = msm_winreduce_fold(digs, tab, pinf, N, w, lo, hi, t,
-                               SECP_WR_THREADS);
-    __syncthreads();
+    jp acc, o;
+    msm_winreduce_fold(acc, digs + (size_t)w * N, tab, pinf, lo + t, hi);
 #pragma unroll 1
-    for (int s = SECP_WR_THREADS / 2; s > 0; s >>= 1) {
-        if (t < s) sh[t] = jp_add(sh[t], sh[t + s]);
-        __syncthreads();
+    for (int s = 16; s > 0; s >>= 1) {
+        fe_shfl_down(o.x, acc.x, s);
+        fe_shfl_down(o.y, acc.y, s);
+        fe_shfl_down(o.z, acc.z, s);
+        o.inf = __shfl_down_sync(0xFFFFFFFFu, acc.inf, s);
+        jp_add_to(acc, acc, o);         // lanes >= s add what they never use
     }
-    if (t == 0)
-        msm_partial_store(ox, oy, oz, oinf, gridDim.y * nblk, w * nblk + b,
-                          sh[0]);
+    if (t == 0) msm_partial_store(ox, oy, oz, oinf, nwin * nblk, w * nblk + c,
+                                  acc);
 }
 
 extern "C" int secp_msm_winreduce(const uint32_t* digs, const uint32_t* tab,
@@ -78,10 +117,20 @@ extern "C" int secp_msm_winreduce(const uint32_t* digs, const uint32_t* tab,
                                   int N, int nwin, int nblk, int chunk,
                                   void* stream) {
     if (N <= 0 || nwin <= 0 || nblk <= 0) return 0;
-    dim3 grid(nblk, nwin);
-    msm_winreduce_kernel<<<grid, SECP_WR_THREADS, 0,
+    dim3 grid((nwin + SECP_WR_WARPS - 1) / SECP_WR_WARPS, nblk);
+    msm_winreduce_kernel<<<grid, SECP_WR_WARPS * 32, 0,
                            (cudaStream_t)stream>>>(digs, tab, pinf, ox, oy,
-                                                   oz, oinf, N, nblk, chunk);
+                                                   oz, oinf, N, nwin, nblk,
+                                                   chunk);
     return (int)cudaGetLastError();
+}
+
+// warps an SM holds at once for this kernel's launches
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); < 0: -(error)
+extern "C" int secp_msm_winreduce_warps(void) {
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, msm_winreduce_kernel, SECP_WR_WARPS * 32, 0);
+    return e ? -(int)e : blocks * SECP_WR_WARPS;
 }
 #endif

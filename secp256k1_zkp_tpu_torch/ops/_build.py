@@ -41,7 +41,8 @@ _SIGNATURES = {
     "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "secp_fixedbase_digits": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "secp_fixedbase_digits_blinded": [_VP] * 6 + [_INT, _VP],
-    "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP],
+    "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP, _VP],
+    "secp_ecmult_glv_warps": [_INT],
     "secp_lift_x": [_VP, _VP, _VP, _INT, _VP],
     "secp_glv_only": [_VP, _VP, _VP, _INT, _VP],
     "secp_schnorr_check": [_VP] * 6 + [_INT, _VP],
@@ -52,6 +53,7 @@ _SIGNATURES = {
     "secp_gej_add": [_VP] * 12 + [_INT, _VP],
     "secp_msm_table": [_VP] * 4 + [_INT, _VP],
     "secp_msm_winreduce": [_VP] * 7 + [_INT] * 4 + [_VP],
+    "secp_msm_winreduce_warps": [],
     "secp_msm_finish": [_VP] * 8 + [_INT] * 3 + [_VP],
     "secp_affine_meta": [_VP] * 6 + [_INT, _VP],
     "secp_inv_n": [_VP, _VP, _INT, _VP],

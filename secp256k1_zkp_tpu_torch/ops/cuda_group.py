@@ -34,6 +34,7 @@ _BETA = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
 _N_ORDER = hostcurve.N
 NW = 26                      # signed 5-bit windows per 128-bit half-scalar
 NT = 17                      # table entries 1..16 (index 0 unused)
+GLV_RATIO_ROWS = 15 * 8      # ecmult_glv scratch rows: the 15 z-ratios
 
 
 @dataclasses.dataclass
@@ -369,21 +370,23 @@ def ecmult_glv(digs, flags, px, py, pinf, gjac, rx=None):
     else:
         rx = px                              # never read by the kernel
     i32 = torch.int32
-    # misc dies with this call while the kernel may still run: safe, the
-    # caching allocator reuses a block only in stream order
+    # misc and scratch die with this call while the kernel may still run:
+    # safe, the caching allocator reuses a block only in stream order
     misc = torch.cat([pinf.to(i32)[None, :], flags], 0).contiguous()
     ox = torch.empty((LIMBS, lanes), dtype=i32, device=px.device)
     oy = torch.empty_like(ox)
     oz = torch.empty_like(ox)
     oinf = torch.empty((lanes,), dtype=i32, device=px.device)
     ok = torch.empty_like(oinf)
+    scratch = torch.empty((GLV_RATIO_ROWS, lanes), dtype=i32,
+                          device=px.device)
     lib = _build.lib()
     _build.count_launch("ecmult_glv")
     _build.check(lib.secp_ecmult_glv(
         digs.data_ptr(), px.data_ptr(), py.data_ptr(), misc.data_ptr(),
         rx.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
         ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
-        ok.data_ptr(), lanes, int(check),
+        ok.data_ptr(), lanes, int(check), scratch.data_ptr(),
         _build.stream_ptr()), "ecmult_glv")
     return ox, oy, oz, oinf != 0, ok != 0
 

@@ -38,10 +38,10 @@ from .limb import LB, from_rows, kernel_rows
 from ..utils import hostcurve
 
 NENT = 15                 # table entries 1..15 (unsigned 4-bit digits)
-WR_THREADS = 128          # threads of an msm_winreduce block (csrc)
-WR_LANES_PER_THREAD = 32  # lanes a thread folds at large N
-WR_MIN_BLOCKS = 1056      # msm_winreduce blocks to aim for: 8 per SM of
-                          # an H100's 132 (chip_smoke.py times others)
+WR_THREADS = 32           # threads of one (window, chunk) partial: a warp
+WR_PARTIALS = 1056        # msm_winreduce partials (one warp each) at most:
+                          # two blocks of 4 warps on each of an H100's 132
+                          # SMs (chip_smoke.py sweeps nblk)
 FINISH_LANES = 128        # Horner lanes of msm_finish, collapsed by gej_add
 I32 = torch.int32
 I64 = torch.int64
@@ -110,13 +110,15 @@ def msm_table(px, py, pinf):
 
 
 def winreduce_blocks(lanes: int, nwin: int) -> int:
-    """Lane chunks per window (``nblk``): about WR_LANES_PER_THREAD lanes a
-    thread at large N, at least WR_MIN_BLOCKS blocks in all where N
-    allows, never a block with fewer lanes than threads."""
-    most = -(-lanes // WR_THREADS)
-    want = max(-(-lanes // (WR_THREADS * WR_LANES_PER_THREAD)),
-               -(-WR_MIN_BLOCKS // nwin))
-    nblk = max(1, min(most, want))
+    """Lane chunks per window (``nblk``): as many as keep nwin * nblk
+    within WR_PARTIALS, never a chunk with fewer lanes than a warp has
+    threads.  On an H100 the kernel's times fit a bound by each SM's
+    throughput, set by the most blocks any SM runs: two
+    blocks an SM, all at once, was the fastest or within 2% of it at
+    every N the sweep tried (16,384 to 2^20 points; a third block on a
+    few SMs cost a third more), the threads folding longer runs as N
+    grows (PERF.md)."""
+    nblk = max(1, min(-(-lanes // WR_THREADS), WR_PARTIALS // nwin))
     chunk = -(-lanes // nblk)
     return -(-lanes // chunk)               # no empty chunk
 

@@ -21,7 +21,9 @@ version, so calling the wrapper here exercises the same code path the
 tests of the slice use; the launch counters must not move.
 """
 
+import ctypes
 import re
+import subprocess
 from pathlib import Path
 
 import jax
@@ -260,9 +262,160 @@ def test_comb_table_matches_jax_and_hostcurve():
     assert ((words >> 16) == limbs[..., 1::2]).all()
 
 
-def test_cuda_constants_header():
+B0_HARNESS = Path(__file__).with_name("torch_b0_harness.cpp")
+
+
+def _b0_harness(tmp_path):
+    """Build the host harness of the B0 core with g++ (the portable branch
+    of csrc/common.cuh's carry-chain primitives) and load it."""
+    so = tmp_path / "b0_core.so"
+    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
+                    str(_build.SRC_DIR), str(B0_HARNESS), "-o", str(so)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.b0_fe.argtypes = [i32, vp, vp, ctypes.c_uint32, vp, vp, i32]
+    lib.b0_jp.argtypes = [i32, vp, vp, vp, i32]
+    return lib
+
+
+def _words(vals):
+    return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                     for v in vals], np.uint32)
+
+
+def _from_words(arr):
+    return [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in arr]
+
+
+def _b0_fe(lib, op, xs, ys, k=0):
+    a, b = _words(xs), _words(ys)
+    r = np.zeros_like(a)
+    z = np.zeros(len(xs), np.uint32)
+    lib.b0_fe(op, a.ctypes.data, b.ctypes.data, k, r.ctypes.data,
+              z.ctypes.data, len(xs))
+    return _from_words(r), z.tolist()
+
+
+def _b0_jp(lib, op, a_pts, b_pts):
+    """(x, y, z, inf) int tuples -> the harness's results, same form."""
+    def pack(pts):
+        return np.array([np.append(_words([x, y, z]).ravel(), inf)
+                         for x, y, z, inf in pts], np.uint32)
+    a, b = pack(a_pts), pack(b_pts)
+    r = np.zeros_like(a)
+    lib.b0_jp(op, a.ctypes.data, b.ctypes.data, r.ctypes.data, len(a_pts))
+    return [tuple(_from_words(row[8 * j:8 * j + 8].reshape(1, 8))[0]
+                  for j in range(3)) + (int(row[24]),) for row in r]
+
+
+def _check_b0_field(lib):
+    """fe_mul / fe_sqr / add / sub / neg / half / mul_int / canon /
+    is_zero of the portable branch against Python ints, on weak operands
+    (p <= x < 2^256), zero and the words where the folds carry."""
+    rng = np.random.default_rng(7)
+    edge = [0, 1, 2, 977, 2 ** 32 + 977, P - 1, P, P + 1, P + 2 ** 32,
+            2 ** 256 - 1, 2 ** 256 - 2, 2 ** 256 - 2 ** 32 - 978, 2 ** 255,
+            2 ** 224 - 1, 0xFFFFFFFF, 2 ** 128 + 1,
+            # words where 3 * a carries out of every word
+            int("55555555FFFFFFFF" * 4, 16), 0x55555555FFFFFFFF << 192]
+    xs = [a for a in edge for _ in edge] + rand(rng, 2 ** 256, 300)
+    ys = [b for _ in edge for b in edge] + rand(rng, 2 ** 256, 300)
+    want = {0: lambda a, b: a * b, 1: lambda a, b: a * a,
+            2: lambda a, b: a + b, 3: lambda a, b: a - b,
+            4: lambda a, b: -a}
+    for op, f in want.items():
+        got, _ = _b0_fe(lib, op, xs, ys)
+        for a, b, r in zip(xs, ys, got):
+            assert r % P == f(a, b) % P, (op, hex(a), hex(b))
+    got, zero = _b0_fe(lib, 4, xs, ys)
+    assert all(r <= P for r in got)                 # neg: in [0, p]
+    assert zero == [int(a % P == 0) for a in xs]
+    got, _ = _b0_fe(lib, 5, xs, ys)
+    assert all((2 * r - a) % P == 0 for a, r in zip(xs, got))
+    for k in (2, 3, 8):
+        got, _ = _b0_fe(lib, 6, xs, ys, k)
+        assert all(r % P == a * k % P for a, r in zip(xs, got)), k
+    got, _ = _b0_fe(lib, 7, xs, ys)
+    assert got == [a % P for a in xs]
+
+
+def _check_b0_group(lib):
+    """jp_double / jp_add_aff / jp_add of the portable branch: the points
+    against hostcurve, every coordinate (canonical) against the plain
+    PyTorch formulas of ops/cuda_group.py, on generic sums, P + P,
+    P + (-P) and infinity operands."""
+    rng = np.random.default_rng(11)
+    ks = rand(rng, N, 12)
+    A = [hc.mul(k) for k in ks]
+    Bq = [hc.mul(k) for k in rand(rng, N, 12)]
+    zs = [z or 1 for z in rand(rng, P, 24)]
+
+    def jac(pt, z, inf=0):
+        if pt is None:
+            return (0, 1, 1, 1)
+        x, y = pt
+        return (x * z * z % P, y * z ** 3 % P, z, inf)
+
+    def aff(pt):
+        x, y, z, inf = pt
+        if inf:
+            return None
+        zi = pow(z, -1, P)
+        return (x * zi * zi % P, y * zi ** 3 % P)
+
+    n = len(A)
+    a_pts = [jac(A[i], zs[i]) for i in range(n)]
+    # b: generic, = a (doubling), = -a (infinity), infinite; a infinite
+    # (lane 9), both (lane 11)
+    b_pts = ([jac(Bq[i], zs[n + i]) for i in range(4)]
+             + [jac(A[i], zs[n + i]) for i in range(4, 7)]
+             + [jac(hc.neg(A[i]), zs[n + i]) for i in range(7, 10)]
+             + [(0, 1, 1, 1)] * 2)
+    a_pts[9] = a_pts[11] = (0, 1, 1, 1)
+    want_b = [aff(b) for b in b_pts]
+    aff_b = [(b[0], b[1], 1, 0) if b else (0, 1, 1, 1) for b in want_b]
+
+    def plain(op, a, b):
+        def jp(pts):
+            cols = list(zip(*pts))
+            return TG.JP(*(TG.FE(torch.from_numpy(rows_np(list(c))
+                                                  .astype(np.int64)),
+                                 TG.MASK16) for c in cols[:3]),
+                         torch.tensor([bool(i) for i in cols[3]]))
+        pa, pb = jp(a), jp(b)
+        if op == 0:
+            r = TG.jp_double(pa)
+        elif op == 1:
+            r = TG.jp_add_aff(pa, pb.x, pb.y, pb.inf)
+        else:
+            r = TG.jp_add(pa, pb)
+        cs = [ints(TG._canon32(c).to(torch.int64)) for c in (r.x, r.y, r.z)]
+        return list(zip(*cs, r.inf.to(torch.int64).tolist()))
+
+    for op, bs, want in ((0, a_pts, [None if aff(a) is None else
+                                     hc.add(aff(a), aff(a)) for a in a_pts]),
+                         (1, aff_b, [hc.add(aff(a), b)
+                                     for a, b in zip(a_pts, want_b)]),
+                         (2, b_pts, [hc.add(aff(a), b)
+                                     for a, b in zip(a_pts, want_b)])):
+        got = _b0_jp(lib, op, a_pts, bs)
+        assert [aff(g) for g in got] == want, op
+        canon = [(x % P, y % P, z % P, inf) for x, y, z, inf in got]
+        assert canon == plain(op, a_pts, bs), op
+
+
+def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
-    modules and the JAX package."""
+    modules and the JAX package; and the B0 field and group core of
+    csrc/fe.cuh and group.cuh, built as plain C++ with g++, gives the
+    right residues and points.  That checks the portable branch of the
+    carry-chain primitives (csrc/common.cuh) and the chains built on them;
+    the PTX forms of the same primitives are held against the plain
+    PyTorch versions on the card by chip_smoke.py."""
+    lib = _b0_harness(tmp_path)
+    _check_b0_field(lib)
+    _check_b0_group(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

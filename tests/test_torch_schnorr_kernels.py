@@ -201,7 +201,8 @@ def test_c_entry_points_match_ctypes_signatures():
     for cu in _build.SRC_DIR.glob("*.cu"):
         for name, params in re.findall(
                 r'extern "C" int (secp_\w+)\(([^)]*)\)', cu.read_text()):
-            entries[name] = len(params.split(","))
+            entries[name] = (0 if params.strip() in ("", "void")
+                             else len(params.split(",")))
     assert entries == {k: len(v) for k, v in _build._SIGNATURES.items()}
     wrappers = "".join(p.read_text() for p in
                        (_build.SRC_DIR.parent / "ops").glob("cuda_*.py"))
@@ -221,3 +222,6 @@ def test_c_entry_points_match_ctypes_signatures():
     # the commitment and recovery slice's: affine_meta (B10), inv_n (B15b)
     assert {"affine_meta.cu", "inv_n.cu"} <= {p.name for p in _build.sources()}
     assert {"secp_affine_meta", "secp_inv_n"} <= set(entries)
+    # the occupancy queries beside the two redesigned kernels
+    assert {"secp_ecmult_glv_warps", "secp_msm_winreduce_warps"} \
+        <= set(entries)
