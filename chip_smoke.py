@@ -17,11 +17,13 @@ and ``generator_serialize``, at 16,384), Pedersen commitments to them
 (``generator.pedersen_verify_tally``) and ECDSA public-key recovery
 (``modules.ecdsa.recover``) at both sizes — builds the seventeen
 hand-written kernels from the sources in this checkout, holds each (and
-the blinded variant of the comb kernel) against its plain PyTorch version
+the comb's blinded and public entries) against its plain PyTorch version
 on the card at every shape those paths give it (exact equality: the
 values are integers, the tolerance is 0; the MSM engine's window partials
 and finish lanes as points, since their jacobian form depends on the
-order of the additions), checks every signature, generator and
+order of the additions, and so the comb's lanes, whose thread teams add
+the rows in another order, and their words where a launch runs one
+thread a lane), checks every signature, generator and
 commitment byte against one made on the host with Python integers,
 ``hashlib`` and ``hmac``, feeds the port's own signatures to its verify
 and recovers their keys, checks batch verification's verdicts and its
@@ -54,12 +56,21 @@ one field multiply and one squaring: the true multiplies (``IMAD``,
 adds with carry and shifts) and all instructions, less the probe's loads
 and stores.  ``bound_ms`` stays the column that ranks the kernels.
 
-Phase ``build`` fails if ``ecmult_glv_kernel`` or ``msm_winreduce_kernel``
-reports a stack or a spill in ``ptxas -v``; phase ``timing`` gives the
-warps per SM of each one's launch
-(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and a sweep of
+Phase ``build`` fails if a redesigned kernel (``STACK_FREE``: B3, B13,
+the comb's kernels, ``msm_table_kernel``) reports a stack or a spill in
+``ptxas -v``, or if the comb's secret row scan spends more than about one
+instruction (LOP3 or SEL) a word on its selects (``sass["scan"]``);
+phase ``timing`` gives the warps per SM of their launches
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), a sweep of
 ``msm_winreduce``'s lane chunks (nblk) with the ``msm_finish`` that
-follows, at 16,384, 262,144 and 2^20 points.
+follows, at 16,384, 262,144 and 2^20 points, and a sweep of the comb's
+threads a lane (T = 1, 2, 4, 8; each T's points checked) at both sizes
+beside the T the wrapper's rule picks.
+
+``fixedbase_public`` is the comb's gather entry for public scalars
+(verify, recover, batch verify): it must never run on a secret-scalar
+path, and ``PATHS`` holds that — the sign, commit and generator paths
+must launch it zero times.
 
 ``mulmod_chain`` is on the main path only through ``context.selftest``
 (one or two lanes, chains of 1 to 16 multiplies); its ``ms``, ``plain_ms``
@@ -146,7 +157,8 @@ OPS = {
     "mulmod_chain": MUL,          # per multiply of the chain
     # inverse, u1, u2, split
     "ecdsa_prep": MODINV + 2 * SC_MUL + GLV_SPLIT,
-    # 37 rows, one mixed add each
+    # 37 rows, one mixed add each (the scan's selects are not counted; nor
+    # are a T-thread team's log2(T) joining adds: a choice of the kernel)
     "fixedbase_digits": 37 * ADD_AFF,
     # table (1 double, 14 adds), global-Z pass, beta * x of the 16 entries,
     # 26 windows of 5 doublings and 2 mixed adds, join, check
@@ -169,10 +181,13 @@ OPS = {
     # the 37 rows and the blinding point, one mixed add each
     "fixedbase_blinded": 38 * ADD_AFF,
     "gej_add": ADD_JAC,
-    # 2P, 13 mixed adds with z-ratios, the inverse, Z^-2, Z^-3, entry 15;
-    # entries 14..1: the ratio product, its square, 5 multiplies
-    "msm_table": (DOUBLE + 13 * ADD_AFF + MODINV + SQR + 3 * MUL
-                  + 14 * (SQR + 5 * MUL) + 13 * MUL),
+    # 2P, 13 mixed adds with z-ratios; the inverses of the last Z by
+    # Montgomery's trick over 32 lanes (3 multiplies a lane and one safegcd
+    # inverse: the function's least work; the kernel inverts each lane,
+    # which measured faster than an inverse shared by a block); entry 15:
+    # b^2, b^3, x, y; entries 14..2: b = b * ratio, b^2, b^3, x, y
+    "msm_table": (DOUBLE + 13 * ADD_AFF + 3 * MUL + MODINV / 32
+                  + SQR + 3 * MUL + 13 * (SQR + 4 * MUL)),
     # per nonzero digit of a finite point (msm_bound)
     "msm_winreduce": ADD_AFF,
     # per lane and window (msm_bound; plus one ADD_JAC per partial)
@@ -182,6 +197,8 @@ OPS = {
     "affine_meta": (MODINV + SQR + 3 * MUL + SQR + 2 * MUL
                     + 253 * SQR + 13 * MUL + SQR),
     "inv_n": MODINV,
+    # the comb's gather entry for public scalars: the same 37 mixed adds
+    "fixedbase_public": 37 * ADD_AFF,
 }
 # 32-bit elements read + written per lane
 WORDS = {
@@ -201,6 +218,7 @@ WORDS = {
     "msm_table": 2 * 16 + 1 + 15 * 16,
     "affine_meta": 3 * 16 + 2 * 16 + 1,
     "inv_n": 16 + 16,
+    "fixedbase_public": 37 + 3 * 16,
 }
 REPLACES = {
     "mulmod_chain": "secp256k1_zkp_tpu/ops/pallas_field.py:183",
@@ -224,6 +242,8 @@ REPLACES = {
                   "(+ _collapse128 at :324)",
     "affine_meta": "secp256k1_zkp_tpu/ops/pallas_field.py:431",
     "inv_n": "secp256k1_zkp_tpu/ops/pallas_scalar.py:157",
+    "fixedbase_public": "secp256k1_zkp_tpu/ops/pallas_gen.py:114 "
+                        "(public digits: the named entry, no scan)",
 }
 SOURCES = {
     "mulmod_chain": "secp256k1_zkp_tpu_torch/csrc/mulmod_chain.cu",
@@ -244,14 +264,27 @@ SOURCES = {
     "msm_finish": "secp256k1_zkp_tpu_torch/csrc/msm_finish.cu",
     "affine_meta": "secp256k1_zkp_tpu_torch/csrc/affine_meta.cu",
     "inv_n": "secp256k1_zkp_tpu_torch/csrc/inv_n.cu",
+    "fixedbase_public": "secp256k1_zkp_tpu_torch/csrc/fixedbase.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
-# kernels whose ptxas -v must read 0 bytes stack and 0 spills
-STACK_FREE = ("ecmult_glv_kernel", "msm_winreduce_kernel")
-ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_digits", "ecmult_glv")
-SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_digits",
+# the __global__ function of each redesigned kernel: its ptxas -v must read
+# 0 bytes stack and 0 spills
+KERNEL_FUNCS = {"ecmult_glv": "ecmult_glv_kernel",
+                "msm_winreduce": "msm_winreduce_kernel",
+                "fixedbase_digits": "fixedbase_kernel",
+                "fixedbase_blinded": "fixedbase_blinded_kernel",
+                "fixedbase_public": "fixedbase_public_kernel",
+                "msm_table": "msm_table_kernel"}
+STACK_FREE = tuple(KERNEL_FUNCS.values())
+ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_public", "ecmult_glv")
+SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_public",
                    "ecmult_glv", "schnorr_check")
-SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded")
+SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded",
+                "fixedbase_digits")
+# the comb's three entries: (kernel mode, blinded)
+COMB_KERNELS = {"fixedbase_digits": (cuda_gen.COMB_SCAN, False),
+                "fixedbase_blinded": (cuda_gen.COMB_SCAN, True),
+                "fixedbase_public": (cuda_gen.COMB_GATHER, False)}
 MSM_KERNELS = ("gej_add", "msm_table", "msm_winreduce", "msm_finish")
 COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
 # the collapse of msm_finish's lanes: one gej_add launch a halving level
@@ -286,10 +319,10 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          # challenges, the leaves, each of the ceil(log2 n) node levels and
          # the randomizers; the lifts of P and R; z*e and z*s; two MSMs
          # (table, window reduce, finish, the collapse's gej_add levels);
-         # rhs = one more gej_add; (sum z s)*G by the comb
+         # rhs = one more gej_add; (sum z s)*G by the comb's gather entry
          "schnorr_batch": lambda n: {
              "sha256": 3 + (n - 1).bit_length(), "lift_x": 2,
-             "muladd_n": 2, "fixedbase_digits": 1, "msm_table": 2,
+             "muladd_n": 2, "fixedbase_public": 1, "msm_table": 2,
              "msm_winreduce": 2, "msm_finish": 2,
              "gej_add": 2 * COLLAPSE_LEVELS + 1},
          "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1,
@@ -304,7 +337,7 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
                                "affine_meta": 1},
          # r^-1, R's y, u1 and u2 (one launch), u2's split, u1*G, Q, affine
          "recover": {"inv_n": 1, "lift_x": 1, "muladd_n": 1, "glv_only": 1,
-                     "fixedbase_digits": 1, "ecmult_glv": 1,
+                     "fixedbase_public": 1, "ecmult_glv": 1,
                      "affine_xy": 1},
          # two add trees: ceil(log2) levels of gej_add for each side
          "tally": lambda n: {"gej_add": (n - 1).bit_length()
@@ -352,10 +385,11 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-# the field multiply and squaring of fe.cuh as they compile into a kernel,
-# and the same loads and stores without them, for the SASS count
+# the field multiply and squaring of fe.cuh and the comb's row scan of
+# comb.cuh as they compile into a kernel, and the same loads and stores
+# without them, for the SASS count
 SASS_PROBE = r"""
-#include "fe.cuh"
+#include "comb.cuh"
 __global__ void probe_mul(const fe* a, const fe* b, fe* r) {
     int i = threadIdx.x;
     fe x = a[i], y = b[i], z;
@@ -378,6 +412,21 @@ __global__ void probe_sqr_base(const fe* a, fe* r) {
     int i = threadIdx.x;
     r[i] = a[i];
 }
+__global__ void probe_scan(const uint32_t* row, const uint32_t* mag, fe* r) {
+    int i = threadIdx.x;
+    fe x, y;
+    comb_scan(row, mag[i], x, y);
+    r[2 * i] = x;
+    r[2 * i + 1] = y;
+}
+__global__ void probe_scan_base(const uint32_t* row, const uint32_t* mag,
+                                fe* r) {
+    int i = threadIdx.x;
+    fe x, y;
+    comb_gather(row, mag[i], x, y);
+    r[2 * i] = x;
+    r[2 * i + 1] = y;
+}
 """
 
 
@@ -386,7 +435,10 @@ def sass_counts() -> dict:
     the instructions of one field multiply and one squaring: true
     multiplies ("mul": IMAD, IMAD.U32, IMAD.WIDE*, IMAD.HI*), the IMAD
     family ("imad": those and IMAD.X, IMAD.SHL, IMAD.IADD, ...; not
-    IMAD.MOV, a register move) and all ("all")."""
+    IMAD.MOV, a register move) and all ("all").  For the comb's row scan
+    (``scan``): its word selects (LOP3 and SEL) per word of the entries it
+    scans past the first (four words a 16-byte load), and its branches
+    (the loop's own; none may test a digit)."""
     nvcc = _build.find_nvcc()
     work = _build.BUILD_DIR / "sass_probe"
     work.mkdir(parents=True, exist_ok=True)
@@ -403,7 +455,8 @@ def sass_counts() -> dict:
         m = re.search(r"Function : _Z(\d+)(\w+)", ln)
         if m:
             name = m.group(2)[:int(m.group(1))]
-            cur = counts.setdefault(name, {"mul": 0, "imad": 0, "all": 0})
+            cur = counts.setdefault(name, dict.fromkeys(
+                ("mul", "imad", "all", "select", "ldg128", "branch"), 0))
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)", ln)
@@ -414,8 +467,18 @@ def sass_counts() -> dict:
                 "IMAD.MOV")
             cur["mul"] += op in ("IMAD", "IMAD.U32") or op.startswith(
                 ("IMAD.WIDE", "IMAD.HI"))
-    return {k: {c: counts[f"probe_{k}"][c] - counts[f"probe_{k}_base"][c]
-                for c in ("mul", "imad", "all")} for k in ("mul", "sqr")}
+            cur["select"] += op.startswith(("LOP3", "SEL"))
+            cur["ldg128"] += op.startswith("LDG") and ".128" in op
+            cur["branch"] += op.startswith(("BRA", "BRX", "JMP"))
+    out = {k: {c: counts[f"probe_{k}"][c] - counts[f"probe_{k}_base"][c]
+               for c in ("mul", "imad", "all")} for k in ("mul", "sqr")}
+    scan, base = counts["probe_scan"], counts["probe_scan_base"]
+    words = 4 * (scan["ldg128"] - base["ldg128"])
+    out["scan"] = dict(selects=scan["select"] - base["select"],
+                       words=words, branches=scan["branch"],
+                       selects_per_word=(scan["select"] - base["select"])
+                       / max(words, 1))
+    return out
 
 
 def profile_call(fn):
@@ -1271,7 +1334,7 @@ def kernel_inputs(msgs, sigs, pub, dev):
              pinf=pub.inf)
     t["digs"], t["gdigs"], t["flags"] = cuda_scalar.ecdsa_prep(
         t["m"], t["r"], t["s"])
-    t["gjac"] = cuda_gen.fixedbase_digits(t["gdigs"])
+    t["gjac"] = cuda_gen.fixedbase_public(t["gdigs"])
     t["check_rx"] = t["r"]
     return t
 
@@ -1299,7 +1362,7 @@ def schnorr_inputs(msgs, sigs, pxs, dev):
     t["digs"], eflags = cuda_scalar.glv_only(t["e"])
     t["flags"] = eflags ^ 1
     t["gdigs"] = cuda_gen.gen_digits(rows(s))
-    t["gjac"] = cuda_gen.fixedbase_digits(t["gdigs"])
+    t["gjac"] = cuda_gen.fixedbase_public(t["gdigs"])
     t["check_rx"] = None
     t["R"] = cuda_group.ecmult_glv(t["digs"], t["flags"], t["px"], t["py"],
                                    t["pinf"], t["gjac"], rx=None)[:4]
@@ -1315,7 +1378,8 @@ def sign_inputs(msgs, secs, blind, dev):
     m, _ = S.from_bytes_be(msgs)
     k, _ = ecdsa._pick_nonce(ecdsa.rfc6979_nonce(msgs, secs))
     t = dict(k=rows(k), m=rows(m), d=rows(d))
-    t["gjac"] = cuda_gen.ecmult_gen(t["k"])
+    t["gdigs"] = cuda_gen.gen_digits(t["k"])
+    t["gjac"] = cuda_gen.fixedbase_digits(t["gdigs"])
     # the blinded comb also on the lanes of its complete add's special
     # cases: k = n - b (k' = 0, the accumulator still at infinity when
     # -b*G is added), k = 0 (k' = b, the last add is P + (-P)), k = 1 and
@@ -1363,23 +1427,27 @@ SHA_TARGETS = {"sha256": (cuda_sha256, "sha256_blocks")}
 BATCH_TARGETS = {**MSM_TARGETS, **SHA_TARGETS,
                  "lift_x": (cuda_field, "lift_x"),
                  "muladd_n": (cuda_gen, "muladd_n"),
-                 "fixedbase_digits": (cuda_gen, "fixedbase_digits")}
+                 "fixedbase_public": (cuda_gen, "fixedbase_public")}
+# the comb's entries, caught on the recover, commit and generator paths
+PUBLIC_COMB_TARGET = {"fixedbase_public": (cuda_gen, "fixedbase_public")}
+SECRET_COMB_TARGET = {"fixedbase_digits": (cuda_gen, "fixedbase_digits")}
 
 
-def msm_sets(seen):
+def msm_sets(seen, off_curve: bool = False):
     """The operands of every launch caught by :func:`catch`, as tensor
-    sets for :func:`compare`, by kernel; and the 64-lane collapse operands
-    with P + P, P + (-P) and infinity lanes mixed in."""
+    sets for :func:`compare`, by kernel; the 64-lane collapse operands
+    with P + P, P + (-P) and infinity lanes mixed in; with ``off_curve``,
+    the first table's operands with a point off the curve on lane 1."""
     sets = {k: [] for k in (*MSM_KERNELS, "sha256", "lift_x", "muladd_n",
-                            "fixedbase_digits")}
+                            "fixedbase_public")}
     for (state, blocks), _ in seen.get("sha256", []):
         sets["sha256"].append(dict(sha_state=state, sha_blocks=blocks))
     for (px,), _ in seen.get("lift_x", []):
         sets["lift_x"].append(dict(px=px))
     for (k, e, d, neg), _ in seen.get("muladd_n", []):
         sets["muladd_n"].append(dict(k=k, e=e, d=d, neg=neg))
-    for (gdigs,), _ in seen.get("fixedbase_digits", []):
-        sets["fixedbase_digits"].append(dict(gdigs=gdigs))
+    for (gdigs,), _ in seen.get("fixedbase_public", []):
+        sets["fixedbase_public"].append(dict(gdigs=gdigs))
     for (px, py, pinf), _ in seen["msm_table"]:
         sets["msm_table"].append(dict(px=px, py=py, pinf=pinf))
     for (digs, tab, pinf, nblk), _ in seen["msm_winreduce"]:
@@ -1389,6 +1457,14 @@ def msm_sets(seen):
         sets["msm_finish"].append(dict(x=x, y=y, z=z, inf=inf, nwin=nwin))
     for (a, b), _ in seen["gej_add"] + seen["gej_add_rhs"]:
         sets["gej_add"].append(dict(a=a, b=b))
+    if off_curve:
+        # msm_table on (0, 0), off the curve: its chain's Z is 0, its
+        # inverse 0, its entries all 0 in the plain version
+        t = sets["msm_table"][0]
+        px, py = t["px"].clone(), t["py"].clone()
+        px[:, 1] = 0
+        py[:, 1] = 0
+        sets["msm_table"].append(dict(px=px, py=py, pinf=t["pinf"]))
     # degenerate adds on the widest collapse operand: b = a (doubling) on
     # even lanes, b = -a on odd lanes, infinity on every fifth
     a = sets["gej_add"][0]["a"]
@@ -1431,6 +1507,10 @@ def run_pair(name, t, use_ref: bool):
     if name == "fixedbase_digits":
         f = (cuda_gen.fixedbase_digits_ref if use_ref
              else cuda_gen.fixedbase_digits)
+        return f(t["gdigs"])
+    if name == "fixedbase_public":
+        f = (cuda_gen.fixedbase_digits_ref if use_ref
+             else cuda_gen.fixedbase_public)
         return f(t["gdigs"])
     if name == "ecmult_glv":
         f = cuda_group.ecmult_glv_ref if use_ref else cuda_group.ecmult_glv
@@ -1483,12 +1563,25 @@ def run_pair(name, t, use_ref: bool):
 
 
 # results compared as points, made affine: each window's partials summed
-# (their jacobian form depends on the order of the additions), and each
-# finish lane on its own
+# (their jacobian form depends on the order of the additions), each finish
+# lane on its own, and the comb's lanes where a team of T > 1 threads adds
+# the rows in another order than the plain version (with T = 1 the words
+# are equal and are compared)
 AS_POINTS = {
     "msm_winreduce": lambda out, t: cuda_msm.points_affine(*out, t["nwin"]),
     "msm_finish": lambda out, t: cuda_msm.points_affine(
-        *out, cuda_msm.FINISH_LANES)}
+        *out, cuda_msm.FINISH_LANES),
+    **{k: lambda out, t: cuda_gen.affine_xy_ref(*out) for k in COMB_KERNELS}}
+
+
+def comb_digits(name, t):
+    return t["bdigs"] if name == "fixedbase_blinded" else t["gdigs"]
+
+
+def comb_team(name, gdigs):
+    """The threads a lane the comb's wrapper takes for ``gdigs``."""
+    return cuda_gen.comb_team(gdigs.shape[1], cuda_gen._sm_count(
+        str(gdigs.device)), COMB_KERNELS[name][0])
 
 
 # weak and carry-heavy field operands (p <= x < 2^256, all-ones words, and
@@ -1508,7 +1601,9 @@ def compare(name, t):
     plain_ms = (time.perf_counter() - t1) * 1e3
     got = run_pair(name, t, use_ref=False)
     torch.cuda.synchronize()
-    if name in AS_POINTS:
+    if name in AS_POINTS and not (
+            name in COMB_KERNELS
+            and comb_team(name, comb_digits(name, t)) == 1):
         got, want = AS_POINTS[name](got, t), AS_POINTS[name](want, t)
     err = 0
     for g, w in zip(got, want):
@@ -1567,6 +1662,9 @@ def main() -> int:
         if v is None or v["stack"] or v["frame"] or v["spill_stores"] \
                 or v["spill_loads"]:
             raise SystemExit(f"{k}: ptxas reports a stack or a spill: {v}")
+    # the comb's secret scan: one select instruction a word
+    if not 0.9 <= sass["scan"]["selects_per_word"] <= 1.25:
+        raise SystemExit(f"comb scan: {sass['scan']} selects a word")
 
     # -- phase 3: kernels against their plain versions ----------------------
     # the verify kernels at both main-path batches and at a ragged one, on
@@ -1595,6 +1693,8 @@ def main() -> int:
                    "replaces": REPLACES[k], "match": True,
                    "max_abs_err": 0, "library_ms": None}
                for k in MAIN_PATH_KERNELS}
+    for name, func in KERNEL_FUNCS.items():
+        results[name]["registers"] = kinfo[func]["registers"]
 
     def record(name, shape, err, plain_ms):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -1609,7 +1709,8 @@ def main() -> int:
     gstensors = {n: ssign_inputs(*gsbatches[n][:3], dev) for n in gsbatches}
     # which tensors each sign kernel is held and timed on
     sign_sets = {"ecdsa_finish": gtensors, "fixedbase_blinded": gtensors,
-                 "affine_xy": gstensors, "muladd_n": gstensors}
+                 "fixedbase_digits": gtensors, "affine_xy": gstensors,
+                 "muladd_n": gstensors}
     selftest_t = [dict(px=x, py=y, chain=n)
                   for x, y, n, _ in context.selftest_operands(dev)]
     for t in selftest_t:
@@ -1690,7 +1791,7 @@ def main() -> int:
         # and z*s, and (sum z s)*G
         _, seen = catch(lambda: schnorrsig.batch_verify(
             *bbatches[n][0]["valid"], device=dev), BATCH_TARGETS)
-        bsets = msm_sets(seen)
+        bsets = msm_sets(seen, off_curve=n == ragged)
         del seen
         for name, tsets in bsets.items():
             checks = [compare(name, t) for t in tsets]
@@ -1717,11 +1818,18 @@ def main() -> int:
     pbatches = {n: make_pedersen_batch(pbase, n) for n in (*sizes, ragged)}
     emit("data", what="pedersen", seconds=round(time.time() - t0, 2))
     ptensors, rtensors = {}, {}
-    meta_target = {"affine_meta": (cuda_field, "affine_meta")}
+    meta_target = {"affine_meta": (cuda_field, "affine_meta"),
+                   **SECRET_COMB_TARGET}
     for n in (*sizes, ragged):
         blinds, hi, lo, gens = pbatches[n][:4]
         _, seen = catch(lambda: generator.pedersen_commit_bytes(
             blinds, hi, lo, gens, device=dev), meta_target)
+        if n == ragged:
+            # the secret comb on the commit path's blinds
+            err, plain_ms = compare("fixedbase_digits", dict(
+                gdigs=seen["fixedbase_digits"][0][0][0]))
+            record("fixedbase_digits", f"{n} lanes, commit path's b", err,
+                   plain_ms)
         x, y, z = (c.clone() for c in seen["affine_meta"][0][0])
         for lane, v in ((0, 0), (1, hc.P + 1), (2, hc.P)):
             z[:, lane] = torch.tensor(_limbs(v), dtype=torch.int32)
@@ -1906,8 +2014,13 @@ def main() -> int:
         return h, ok, generator.generator_serialize(h)
 
     t1 = time.perf_counter()
-    hgen, hok, hser = counted("generator_blinded", generate_and_serialize)
+    (hgen, hok, hser), seen = catch(lambda: counted(
+        "generator_blinded", generate_and_serialize), SECRET_COMB_TARGET)
     gen_s = time.perf_counter() - t1
+    err, plain_ms = compare("fixedbase_digits", dict(
+        gdigs=seen["fixedbase_digits"][0][0][0]))
+    record("fixedbase_digits", f"{sizes[0]} lanes, generator blind", err,
+           plain_ms)
     wrong = int(((hser.cpu().numpy() != gwant).any(1)
                  | ~hok.cpu().numpy()).sum())
     emit("main_path", path="generator_blinded", lanes=sizes[0],
@@ -1957,8 +2070,12 @@ def main() -> int:
         rm, rs, rr, rok, kx, ky = make_recover_batch(msgs, *port_sigs[n],
                                                      sign_ok, pub)
         rdata[n] = rm, rs, rr
-        q, qok = counted("recover", lambda: ecdsa.recover(rm, rs, rr,
-                                                          device=dev))
+        (q, qok), seen = catch(lambda: counted(
+            "recover", lambda: ecdsa.recover(rm, rs, rr, device=dev)),
+            PUBLIC_COMB_TARGET)
+        err, plain_ms = compare("fixedbase_public", dict(
+            gdigs=seen["fixedbase_public"][0][0][0]))
+        record("fixedbase_public", f"{n} lanes, recover's u1", err, plain_ms)
         assert qok.shape == (n,) and qok.is_cuda and q.x.v.shape == (n, 16)
         qok = qok.cpu().numpy()
         bad_key = ((q.x.v.cpu().numpy() != kx).any(1)
@@ -1971,6 +2088,10 @@ def main() -> int:
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
     if idle:
         raise SystemExit(f"main path never launched: {idle}")
+    bad = [k for k, v in results.items() if not v["match"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions on "
+                         f"the recover, commit or generator path: {bad}")
 
     # -- phase 5: timing -----------------------------------------------------
     for name in MAIN_PATH_KERNELS:
@@ -2051,6 +2172,46 @@ def main() -> int:
             nnz = int(((t["digs"] != 0) & ~t["pinf"][None, :]).sum())
             results["msm_winreduce"][f"{pre}bound_int_ms_{n}"] = int_bound(
                 "msm_winreduce", nnz)
+    results["msm_table"]["warps_per_sm"] = lib.secp_msm_table_warps()
+    for n, tsets in ((sizes[0], btensors[sizes[0]]), (sizes[1],
+                     btensors[sizes[1]]), (MSM_POINTS, msets)):
+        results["msm_table"][f"bound_int_ms_{n}"] = int_bound(
+            "msm_table", tsets["msm_table"][0]["px"].shape[1])
+    # the comb: its kernels' warps an SM; the threads a lane (T) swept at
+    # both sizes, each T's points held against those of the launch phase 3
+    # held against the plain version (the T the wrapper picks), 15 runs
+    # each (a launch at 16,384 lanes is ~0.2 ms)
+    for name, (mode, blinded) in COMB_KERNELS.items():
+        warps = lib.secp_fixedbase_warps(int(mode == cuda_gen.COMB_GATHER),
+                                         int(blinded))
+        results[name]["warps_per_sm"] = warps
+        for n in sizes:
+            t = (tensors if name == "fixedbase_public" else sign_sets[name])[n]
+            gd = comb_digits(name, t)
+            gb = t["gb"] if blinded else None
+            chosen = comb_team(name, gd)
+
+            def launch(team):
+                return cuda_gen._comb_launch(gd, gb, mode, team)
+
+            want = cuda_gen.affine_xy_ref(*launch(chosen))
+
+            def timed(team):
+                got = want if team == chosen else cuda_gen.affine_xy_ref(
+                    *launch(team))
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"{name} at {n} lanes, T = {team}: "
+                                     f"wrong points")
+                return time_ms(lambda: launch(team), reps=15)
+
+            by_team = {team: timed(team) for team in cuda_gen.COMB_TEAMS}
+            best = min(by_team.values())
+            results[name][f"team_{n}"] = chosen
+            results[name][f"ms_by_team_{n}"] = by_team
+            results[name][f"bound_int_ms_{n}"] = int_bound(name, n)
+            emit("timing", name=name + "_teams", lanes=n, warps_per_sm=warps,
+                 ms_by_team=by_team, chosen=chosen,
+                 chosen_within_10pct=by_team[chosen] <= 1.1 * best)
     # msm_winreduce's lane chunks (cuda_msm.winreduce_blocks): ms of the
     # window reduce and of the msm_finish after it by nblk, from two warps
     # an SM up, on both MSMs of batch verify and on the 2^20-point MSM

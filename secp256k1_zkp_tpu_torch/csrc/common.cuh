@@ -61,6 +61,21 @@ SECP_INLINE u256 select256(uint32_t m, const u256& a, const u256& b) {
     return r;
 }
 
+// (a & m) | (b & ~m) for a mask m of all ones or zeros: on the card one
+// LOP3 in an asm, which the compiler cannot turn into a branch or a
+// predicated load (the select scans of secret indexes use it)
+#ifdef __CUDACC__
+SECP_INLINE uint32_t sel_mask(uint32_t a, uint32_t b, uint32_t m) {
+    uint32_t r;
+    asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(r) : "r"(a), "r"(b), "r"(m));
+    return r;
+}
+#else
+SECP_INLINE uint32_t sel_mask(uint32_t a, uint32_t b, uint32_t m) {
+    return (a & m) | (b & ~m);
+}
+#endif
+
 // t[0..NA+NB) = a[0..NA) * b[0..NB), operand scanning with 64-bit sums
 template <int NA, int NB>
 SECP_INLINE void bn_mul(uint32_t* t, const uint32_t* a, const uint32_t* b) {

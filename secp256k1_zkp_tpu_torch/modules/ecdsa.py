@@ -58,7 +58,7 @@ def verify(msg32, sig64, pub: GE, device="cuda"):
     r_t = kernel_rows(r)
     digs, gdigs, flags = cuda_scalar.ecdsa_prep(kernel_rows(m), r_t,
                                                  kernel_rows(s))
-    gjac = cuda_gen.fixedbase_digits(gdigs)
+    gjac = cuda_gen.fixedbase_public(gdigs)     # u1 is public
     px = kernel_rows(F.normalize(pub.x))
     py = kernel_rows(F.normalize(pub.y))
     _, _, _, _, ok = cuda_group.ecmult_glv(digs, flags, px, py, pub.inf,
@@ -172,7 +172,7 @@ def recover_scalars(m, r, s, recid):
         torch.zeros(2 * lanes, dtype=torch.bool, device=r.device))
     u2, u1 = us[:, :lanes].contiguous(), us[:, lanes:].contiguous()
     digs, flags = cuda_scalar.glv_only(u2)
-    gjac = cuda_gen.fixedbase_digits(cuda_gen.gen_digits(u1))
+    gjac = cuda_gen.fixedbase_public(cuda_gen.gen_digits(u1))  # public
     x, y, z, inf, _ = cuda_group.ecmult_glv(digs, flags, x_t, y_t, ~y_ok,
                                             gjac, rx=None)
     qx, qy = cuda_gen.affine_xy(x, y, z)

@@ -84,7 +84,7 @@ def verify(msg32, sig64, px32, device="cuda"):
     py_t, on_curve = cuda_field.lift_x(px_t)
     edigs, eflags = cuda_scalar.glv_only(kernel_rows(S.normalize(e)))
     eflags = eflags ^ 1                      # R = s*G + (-e)*P
-    gjac = cuda_gen.fixedbase_digits(cuda_gen.gen_digits(kernel_rows(s)))
+    gjac = cuda_gen.fixedbase_public(cuda_gen.gen_digits(kernel_rows(s)))
     # P off the curve is not masked here: the lane is rejected below
     pinf = torch.zeros(lanes, dtype=torch.bool, device=dev)
     x, y, z, inf, _ = cuda_group.ecmult_glv(edigs, eflags, px_t, py_t,
@@ -259,6 +259,8 @@ def batch_verify(msgs32, sigs64, pxs32, seed32=None, device="cuda"):
     rhs = G.gej_add(msm_windowed(z, GE(rx, from_rows(ry), ~r_ok), 128),
                     msm_windowed(from_rows(ze_t),
                                  GE(pkx, from_rows(py), ~p_ok), 256))
-    lx, ly, lz = cuda_gen.ecmult_gen(ssum.to(torch.int32))
+    # the sum of z*s is public: the comb's gather entry
+    lx, ly, lz = cuda_gen.fixedbase_public(
+        cuda_gen.gen_digits(ssum.to(torch.int32)))
     lhs = GEJ(*(from_rows(t, ()) for t in (lx, ly, lz)), (lz[:, 0] == 0).all())
     return ok & G.gej_eq(lhs, rhs)

@@ -39,8 +39,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "secp_mulmod_chain": [_VP, _VP, _VP, _INT, _INT, _VP],
     "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "secp_fixedbase_digits": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "secp_fixedbase_digits_blinded": [_VP] * 6 + [_INT, _VP],
+    "secp_fixedbase": [_VP] * 6 + [_INT] * 3 + [_VP],
+    "secp_fixedbase_warps": [_INT] * 2,
     "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP, _VP],
     "secp_ecmult_glv_warps": [_INT],
     "secp_lift_x": [_VP, _VP, _VP, _INT, _VP],
@@ -51,7 +51,8 @@ _SIGNATURES = {
     "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
     "secp_gej_add": [_VP] * 12 + [_INT, _VP],
-    "secp_msm_table": [_VP] * 4 + [_INT, _VP],
+    "secp_msm_table": [_VP] * 5 + [_INT, _VP],
+    "secp_msm_table_warps": [],
     "secp_msm_winreduce": [_VP] * 7 + [_INT] * 4 + [_VP],
     "secp_msm_winreduce_warps": [],
     "secp_msm_finish": [_VP] * 8 + [_INT] * 3 + [_VP],
@@ -66,7 +67,8 @@ LAUNCH_COUNTS: dict[str, int] = {
     "ecmult_glv": 0, "lift_x": 0, "glv_only": 0, "schnorr_check": 0,
     "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
     "fixedbase_blinded": 0, "gej_add": 0, "msm_table": 0,
-    "msm_winreduce": 0, "msm_finish": 0, "affine_meta": 0, "inv_n": 0}
+    "msm_winreduce": 0, "msm_finish": 0, "affine_meta": 0, "inv_n": 0,
+    "fixedbase_public": 0}
 
 
 def count_launch(name: str) -> None:

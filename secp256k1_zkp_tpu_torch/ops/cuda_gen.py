@@ -7,11 +7,13 @@ Counterpart of the JAX package's ``ops/pallas_gen.py``:
   (``_comb_tables_np``, ``gen_digits``, ``_gen_kernel``,
   ``fixedbase_digits_tpu``, ``ecmult_gen_tpu``): digit position v (0..36)
   runs against its own 64-entry table of d * 2^(7v) * G, so k*G costs 37
-  complete mixed adds and no doublings.  The kernel selects each entry with
-  a full table scan (k is secret when signing); the plain version indexes
-  the table directly.  With a :class:`Blind` (b, -b*G) the scalar is
-  offset to k + b mod n in glue and the kernel ends with one more mixed
-  add of -b*G, the blinding of the reference's ecmult_gen.
+  complete mixed adds and no doublings.  For a secret k the kernel
+  selects each entry with a full table scan; ``fixedbase_public`` (a
+  verifier's public scalar) reads the named entry alone, as the
+  reference's verification ecmult does.  The plain version indexes the
+  table directly.  With a :class:`Blind` (b, -b*G) the scalar is offset
+  to k + b mod n in glue and the kernel ends with one more mixed add of
+  -b*G, the blinding of the reference's ecmult_gen.
 * ``ecdsa_sign_finish`` (``_ecdsa_finish_kernel``): affine R, r = x mod n
   with the overflow flag, s = k^-1 (m + r d), low-S, recid, ok.
 * ``affine_xy`` (``_affine_xy_kernel``): jacobian -> canonical affine.
@@ -135,11 +137,70 @@ def _gb_words(gbx: int, gby: int, device: str) -> torch.Tensor:
     return pack_words(gb).reshape(16).contiguous().to(device)
 
 
+# how the kernel finds an entry (csrc/fixedbase.cu): a full scan of the
+# row, or the named entry alone, for public digits
+COMB_SCAN, COMB_GATHER = 0, 1
+COMB_TEAMS = (1, 2, 4, 8)        # threads a lane the kernel takes
+# warps an SM the team rule aims for: the scan's 256 loads a row want two
+# warps on each of an SM's four schedulers, the gather's adds one (the
+# sweep of chip_smoke.py, PERF.md)
+COMB_WARPS = {COMB_SCAN: 8, COMB_GATHER: 4}
+
+
+@lru_cache(maxsize=8)
+def _sm_count(device: str) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def comb_team(lanes: int, sms: int, mode: int) -> int:
+    """Threads a lane of the comb (T): the most of ``COMB_TEAMS`` for
+    which B * T threads stay within ``COMB_WARPS[mode]`` warps on each of
+    the card's ``sms`` SMs; 1 once B alone reaches that.  Thread t of a
+    team sums the rows t, t + T, ... and a tree of log2(T) complete adds
+    joins the team."""
+    team = 1
+    while (2 * team <= COMB_TEAMS[-1]
+           and lanes * 2 * team <= sms * 32 * COMB_WARPS[mode]):
+        team *= 2
+    return team
+
+
+def _comb_launch(gdigs: torch.Tensor, gb, mode: int,
+                 team: int | None = None):
+    """One launch of ``csrc/fixedbase.cu`` on CUDA digit rows; ``team``
+    None takes :func:`comb_team`'s T.  Counted as ``fixedbase_public``
+    (gather), ``fixedbase_blinded`` (scan with gb) or ``fixedbase_digits``
+    (scan)."""
+    lanes = _build.check_rows(gdigs, NW7, "fixedbase gdigs")
+    dev = str(gdigs.device)
+    if team is None:
+        team = comb_team(lanes, _sm_count(dev), mode)
+    tab = _comb_words(dev)
+    ox = torch.empty((LIMBS, lanes), dtype=I32, device=gdigs.device)
+    oy = torch.empty_like(ox)
+    oz = torch.empty_like(ox)
+    gbw = None if gb is None else _gb_words(int(gb[0]), int(gb[1]), dev)
+    lib = _build.lib()
+    if mode == COMB_GATHER:
+        _build.count_launch("fixedbase_public")
+    elif gb is None:
+        _build.count_launch("fixedbase_digits")
+    else:
+        _build.count_launch("fixedbase_blinded")
+    _build.check(lib.secp_fixedbase(
+        gdigs.data_ptr(), tab.data_ptr(),
+        None if gbw is None else gbw.data_ptr(), ox.data_ptr(),
+        oy.data_ptr(), oz.data_ptr(), lanes, team, int(mode == COMB_GATHER),
+        _build.stream_ptr()), "fixedbase")
+    return ox, oy, oz
+
+
 def fixedbase_digits(gdigs: torch.Tensor, gb=None):
-    """k*G from signed-w7 comb digit rows ``[37, B]`` int32 (the layout of
-    ``cuda_scalar.recode_w7_256``, MSB-first); with ``gb = (x, y)``, the
-    affine point -b*G as Python ints, one more complete mixed add of it
-    (the blinded tail; the rows then encode k + b mod n).
+    """k*G for a **secret** k from signed-w7 comb digit rows ``[37, B]``
+    int32 (the layout of ``cuda_scalar.recode_w7_256``, MSB-first); with
+    ``gb = (x, y)``, the affine point -b*G as Python ints, one more
+    complete mixed add of it (the blinded tail; the rows then encode
+    k + b mod n).  Each entry is chosen by a full scan of its row.
 
     Returns jacobian (x, y, z) ``[16, B]`` int32 **canonical** limbs;
     z == 0 marks infinity lanes.  CUDA tensors go through the hand-written
@@ -148,25 +209,21 @@ def fixedbase_digits(gdigs: torch.Tensor, gb=None):
     the plain version."""
     if not gdigs.is_cuda:
         return fixedbase_digits_ref(gdigs, gb)
-    lanes = _build.check_rows(gdigs, NW7, "fixedbase_digits gdigs")
-    tab = _comb_words(str(gdigs.device))
-    ox = torch.empty((LIMBS, lanes), dtype=I32, device=gdigs.device)
-    oy = torch.empty_like(ox)
-    oz = torch.empty_like(ox)
-    lib = _build.lib()
-    if gb is None:
-        _build.count_launch("fixedbase_digits")
-        code = lib.secp_fixedbase_digits(
-            gdigs.data_ptr(), tab.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-            oz.data_ptr(), lanes, _build.stream_ptr())
-    else:
-        gbw = _gb_words(int(gb[0]), int(gb[1]), str(gdigs.device))
-        _build.count_launch("fixedbase_blinded")
-        code = lib.secp_fixedbase_digits_blinded(
-            gdigs.data_ptr(), tab.data_ptr(), gbw.data_ptr(), ox.data_ptr(),
-            oy.data_ptr(), oz.data_ptr(), lanes, _build.stream_ptr())
-    _build.check(code, "fixedbase_digits")
-    return ox, oy, oz
+    return _comb_launch(gdigs, gb, COMB_SCAN)
+
+
+def fixedbase_public(gdigs: torch.Tensor):
+    """k*G for a **public** k (a verifier's scalar) from signed-w7 comb
+    digit rows ``[37, B]`` int32: the digit names the table entry, which
+    is read alone — no scan, so the time and the addresses depend on k.
+    Never call it with a secret.
+
+    Returns what :func:`fixedbase_digits` returns.  CUDA tensors go
+    through the hand-written kernel (``csrc/fixedbase.cu``, counted as
+    ``fixedbase_public``); CPU tensors through the plain version."""
+    if not gdigs.is_cuda:
+        return fixedbase_digits_ref(gdigs)
+    return _comb_launch(gdigs, None, COMB_GATHER)
 
 
 def blinded_digits(k: torch.Tensor, blind: Blind):
@@ -178,8 +235,9 @@ def blinded_digits(k: torch.Tensor, blind: Blind):
 
 
 def ecmult_gen(k: torch.Tensor, blind: Blind | None = None):
-    """k*G on a canonical ``[16, B]`` int32 scalar, through
-    :func:`fixedbase_digits`; the counterpart of ``ecmult_gen_tpu``.
+    """k*G on a canonical ``[16, B]`` int32 **secret** scalar, through
+    :func:`fixedbase_digits` (the scan); the counterpart of
+    ``ecmult_gen_tpu``.
 
     With ``blind`` the digits are those of k' = k + b mod n
     (:func:`blinded_digits`) and the kernel adds -b*G at the end:

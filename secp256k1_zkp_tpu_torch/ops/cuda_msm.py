@@ -38,6 +38,7 @@ from .limb import LB, from_rows, kernel_rows
 from ..utils import hostcurve
 
 NENT = 15                 # table entries 1..15 (unsigned 4-bit digits)
+TABLE_SCRATCH_ROWS = 13 * 16 + 12 * 8   # msm_table's X, Y and z-ratio rows
 WR_THREADS = 32           # threads of one (window, chunk) partial: a warp
 WR_PARTIALS = 1056        # msm_winreduce partials (one warp each) at most:
                           # two blocks of 4 warps on each of an H100's 132
@@ -86,7 +87,8 @@ def msm_table(px, py, pinf):
     int32 limbs, pinf ``[N]`` bool (those lanes' tables are built from G
     and never read) -> ``[N, 15, 16]`` int32 words (module docstring).
 
-    CUDA tensors go through the hand-written kernel (``csrc/msm_table.cu``);
+    CUDA tensors go through the hand-written kernel (``csrc/msm_table.cu``,
+    with a word-major ``[TABLE_SCRATCH_ROWS, N]`` scratch for the chain);
     CPU tensors through the plain version."""
     if not px.is_cuda:
         return msm_table_ref(px, py, pinf)
@@ -96,11 +98,15 @@ def msm_table(px, py, pinf):
         raise ValueError("msm_table pinf: expected a CUDA [N] mask")
     pinf32 = pinf.to(I32).contiguous()
     tab = torch.empty((lanes, NENT, 16), dtype=I32, device=px.device)
+    # scratch dies with this call while the kernel may still run: safe, the
+    # caching allocator reuses a block only in stream order
+    scratch = torch.empty((TABLE_SCRATCH_ROWS, lanes), dtype=I32,
+                          device=px.device)
     lib = _build.lib()
     _build.count_launch("msm_table")
     _build.check(lib.secp_msm_table(
         px.data_ptr(), py.data_ptr(), pinf32.data_ptr(), tab.data_ptr(),
-        lanes, _build.stream_ptr()), "msm_table")
+        scratch.data_ptr(), lanes, _build.stream_ptr()), "msm_table")
     return tab
 
 

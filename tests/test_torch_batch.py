@@ -19,7 +19,8 @@ Python integers.
   and ``hashlib`` for n = 1, 3 and 8; ``batch_verify`` against
   ``oracle.schnorr_verify`` lane by lane: valid batches of 3 and 1, the
   two-lane cancellation forgery of tests/test_pallas_tpu.py, and a flipped
-  s byte; a flipped message byte, a key x off the curve and r >= p are
+  s byte (the valid batches reach the comb's public gather entry alone,
+  for the sum of z*s); a flipped message byte, a key x off the curve and r >= p are
   checked broken by the oracle here and rejected by the port in the
   ``slow`` item (a CPU ``batch_verify`` takes about 14 s, most of it the
   plain ``msm_finish``'s 384 doublings in sequence).
@@ -319,14 +320,16 @@ def _batch_randomizers_and_valid_batches_vs_jax_and_oracle():
     assert ints(zs.v.T) == _host_randomizers(msgs[:3], sigs[:3], pxs[:3],
                                              seed)[1]
 
+    from test_torch_sign import comb_entries
     before = dict(_build.LAUNCH_COUNTS)
     for n in (3, 1):
         for j in range(n):
             assert oracle.schnorr_verify(bytes(msgs[j]), int.from_bytes(
                 bytes(pxs[j]), "big"), bytes(sigs[j]))
-        ok = schnorrsig.batch_verify(*_port_args(msgs[:n], sigs[:n],
-                                                 pxs[:n]), device="cpu")
+        ok, comb = comb_entries(lambda: schnorrsig.batch_verify(
+            *_port_args(msgs[:n], sigs[:n], pxs[:n]), device="cpu"))
         assert ok.dtype == torch.bool and ok.shape == () and bool(ok), n
+        assert comb == {"public"}           # sum z*s: the comb's gather
     # the two-lane cancellation forgery of tests/test_pallas_tpu.py
     (label, m, s, p), = _corruptions(msgs[:3], sigs[:3], pxs[:3],
                                      ("forgery",))

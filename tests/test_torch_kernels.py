@@ -41,6 +41,7 @@ from secp256k1_zkp_tpu_torch.ops import _build
 from secp256k1_zkp_tpu_torch.ops import cuda_field as TF
 from secp256k1_zkp_tpu_torch.ops import cuda_gen as TGEN
 from secp256k1_zkp_tpu_torch.ops import cuda_group as TG
+from secp256k1_zkp_tpu_torch.ops import cuda_msm as TM
 from secp256k1_zkp_tpu_torch.ops import cuda_scalar as TS
 from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
 
@@ -276,6 +277,8 @@ def _b0_harness(tmp_path):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.b0_fe.argtypes = [i32, vp, vp, ctypes.c_uint32, vp, vp, i32]
     lib.b0_jp.argtypes = [i32, vp, vp, vp, i32]
+    lib.b0_comb.argtypes = [vp, vp, i32, i32, i32, vp]
+    lib.b0_msm_table.argtypes = [vp, vp, vp, i32, vp, vp]
     return lib
 
 
@@ -405,17 +408,86 @@ def _check_b0_group(lib):
         assert canon == plain(op, a_pts, bs), op
 
 
+def _check_b0_comb(lib):
+    """The comb's T-thread sum (csrc/comb.cuh, joined by fixedbase.cu's
+    tree) with T = 1, 2, 4 and 8, scanning and gathering: every lane's
+    point equals k*G (hostcurve), an all-zero scalar gives infinity with
+    z = 0, and with T = 1 the words equal the plain version's (which adds
+    the rows in the same order).  Scalars with zero digit rows leave some
+    team threads' partial sums at infinity."""
+    rng = np.random.default_rng(12)
+    ks = rand(rng, N, 6) + [0, 1, N - 1, 2 ** 255, 5, 2 ** 7 * 65 + 64,
+                            2 ** 140 + 3]
+    gd = TS.recode_w7_256(torch.from_numpy(
+        rows_np(ks).astype(np.int64))).to(I32)
+    assert (gd[:30] == 0).all(0).any()          # lanes with zero rows
+    digs = np.ascontiguousarray(gd.numpy().astype(np.uint32))
+    table = np.ascontiguousarray(
+        TGEN._comb_words("cpu").numpy().view(np.uint32))
+    rx, ry, rz = (ints(c) for c in TGEN.fixedbase_digits_ref(gd))
+    for mode in (0, 1):                         # COMB_SCAN, COMB_GATHER
+        for team in (1, 2, 4, 8):
+            out = np.zeros((len(ks), 25), np.uint32)
+            lib.b0_comb(digs.ctypes.data, table.ctypes.data, len(ks), team,
+                        mode, out.ctypes.data)
+            for j, k in enumerate(ks):
+                x, y, z = (_from_words(out[j:j + 1, 8 * c:8 * c + 8])[0]
+                           for c in range(3))
+                if k % N == 0:
+                    assert out[j, 24] == 1 and z == 0, (mode, team, j)
+                    continue
+                zi = pow(z, -1, P)
+                assert out[j, 24] == 0
+                assert (x * zi * zi % P, y * zi ** 3 % P) == hc.mul(k), \
+                    (mode, team, j)
+                if team == 1:
+                    assert (x, y, z) == (rx[j], ry[j], rz[j]), (mode, j)
+
+
+def _check_b0_msm_table(lib):
+    """msm_table.cu's lane (csrc/msm.cuh: the chain's X, Y and z-ratios in
+    the word-major scratch, the lane's inverse of its last Z, the backward
+    pass stepping 1 / z_d by the ratios): every entry d*P against
+    hostcurve and every word against the plain version, with an infinite
+    lane (G's table) and a point off the curve, (0, 0), whose Z is 0 (its
+    entries all zero)."""
+    rng = np.random.default_rng(13)
+    pts = [hc.mul(k or 1) for k in rand(rng, N, 5)] + [hc.mul(7), (0, 0)]
+    pinf = [False] * 5 + [True, False]
+    n = len(pts)
+    px = np.ascontiguousarray(rows_np([p[0] for p in pts]))
+    py = np.ascontiguousarray(rows_np([p[1] for p in pts]))
+    inf = np.array(pinf, np.uint32)
+    tab = np.zeros((n, TM.NENT, 16), np.uint32)
+    scratch = np.zeros((TM.TABLE_SCRATCH_ROWS, n), np.uint32)
+    lib.b0_msm_table(px.ctypes.data, py.ctypes.data, inf.ctypes.data, n,
+                     tab.ctypes.data, scratch.ctypes.data)
+    want = TM.msm_table_ref(trows32([p[0] for p in pts]),
+                            trows32([p[1] for p in pts]),
+                            torch.tensor(pinf))
+    assert (tab.view(np.int32) == want.numpy()).all()
+    for j, (pt, pi) in enumerate(zip(pts[:6], pinf)):
+        base = hc.G if pi else pt
+        for d in range(1, TM.NENT + 1):
+            x, y = _from_words(tab[j, d - 1].reshape(2, 8))
+            assert (x, y) == hc.mul(d, base), (j, d)
+    assert not tab[6].any()
+
+
 def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
     modules and the JAX package; and the B0 field and group core of
     csrc/fe.cuh and group.cuh, built as plain C++ with g++, gives the
     right residues and points.  That checks the portable branch of the
-    carry-chain primitives (csrc/common.cuh) and the chains built on them;
-    the PTX forms of the same primitives are held against the plain
-    PyTorch versions on the card by chip_smoke.py."""
+    carry-chain primitives (csrc/common.cuh) and the chains built on them,
+    and with them the comb's T-thread sum (csrc/comb.cuh) and msm_table's
+    lane (csrc/msm.cuh); the PTX forms are held against the plain PyTorch
+    versions on the card by chip_smoke.py."""
     lib = _b0_harness(tmp_path)
     _check_b0_field(lib)
     _check_b0_group(lib)
+    _check_b0_comb(lib)
+    _check_b0_msm_table(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

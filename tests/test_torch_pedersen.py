@@ -23,6 +23,8 @@ entry point of ``modules/generator.py`` against ``tests/oracle.py``.
   with b = 0, v = 0, both, b >= n, an infinite generator and v = 2^64 - 1;
   the commitment parser; the tally balanced and off by one, built as
   tests/test_generator.py builds it; both blind sums against Python ints.
+  The blinded generators and the commitments reach the comb's full scan
+  alone (their blinds are secret), never its public gather.
 
 Tolerance: 0 (integers, limbs, bytes).  On CPU tensors every wrapper takes
 its plain version; the launch counters must not move.  These checks are
@@ -193,8 +195,10 @@ def check_pedersen_generators_and_commitments(monkeypatch):
     bad[2, 1:] = torch.tensor(list(i32(5)))         # no point has x = 5
     assert not pow(5 ** 3 + 7, (P - 1) // 2, P) == 1
     assert TG.generator_parse(bad, device="cpu")[1].tolist() == [False] * 3
-    bgen, bok = TG.generator_generate(bytes_t(keys), bytes_t(blinds),
-                                      device="cpu")
+    from test_torch_sign import comb_entries
+    (bgen, bok), comb = comb_entries(lambda: TG.generator_generate(
+        bytes_t(keys), bytes_t(blinds), device="cpu"))
+    assert comb == {"secret"}                       # the blind: full scan
     assert bok.tolist() == [True, True, False]      # blind >= n
     assert ge_list(bgen) == [
         oracle.generator_generate(k, i32(int.from_bytes(b, "big") % N))
@@ -214,8 +218,9 @@ def check_pedersen_generators_and_commitments(monkeypatch):
                   torch.tensor(ginf))
     hi = np.array([v >> 32 for v in cv], np.uint32)
     lo = np.array([v & 0xFFFFFFFF for v in cv], np.uint32)
-    c33, cok = TG.pedersen_commit_bytes(bytes_t([i32(b) for b in cb]), hi,
-                                        lo, gpts, device="cpu")
+    (c33, cok), comb = comb_entries(lambda: TG.pedersen_commit_bytes(
+        bytes_t([i32(b) for b in cb]), hi, lo, gpts, device="cpu"))
+    assert comb == {"secret"}                       # b: the full scan
     want_c, want_ok = [], []
     for b, v, g, gi in zip(cb, cv, lane_gen, ginf):
         pt = hc.add(hc.mul(b % N), None if gi else hc.mul(v, g))

@@ -14,7 +14,8 @@ on the CPU.
   curve, bit 1 with r >= p - n, bit 1 with r + n = p - 1 (not on the
   curve).  The compact 65-byte codec,
   ``to_standard``, ``recover_verify_consistency``, ``sign_recoverable``
-  (sign, then recover the signer) and ``signature_normalize``.
+  (sign, then recover the signer) and ``signature_normalize``.  Recovery
+  reaches the comb's public gather entry alone (u1 is public).
 
 Tolerance: 0 (integers, limbs, bytes).  On CPU tensors every wrapper takes
 its plain version; the launch counters must not move.  These checks are
@@ -154,8 +155,10 @@ def check_recover_and_the_scalar_inverse():
     rids += [rids[0]] * 2
     want += [None, None]
     assert want[:8] == [w for w in want if w] and None not in want[:8]
-    q, ok = TE.recover(bytes_t(msgs), bytes_t(sigs), torch.tensor(rids),
-                       device="cpu")
+    from test_torch_sign import comb_entries
+    (q, ok), comb = comb_entries(lambda: TE.recover(
+        bytes_t(msgs), bytes_t(sigs), torch.tensor(rids), device="cpu"))
+    assert comb == {"public"}                   # u1: the comb's gather
     assert q.x.v.shape == (L + 2, 16) and ok.dtype == torch.bool
     got = [(x, y) if k else None for x, y, k in
            zip(lb_ints(q.x), lb_ints(q.y), ok.tolist())]

@@ -211,9 +211,10 @@ def test_c_entry_points_match_ctypes_signatures():
     assert {"lift_x.cu", "glv_only.cu", "schnorr_check.cu", "sha256.cu",
             "ecdsa_finish.cu", "affine_xy.cu", "muladd_n.cu"} \
         <= {p.name for p in _build.sources()}
-    # the sign slice's entry points, the blinded comb's among them
-    assert {"secp_fixedbase_digits_blinded", "secp_ecdsa_finish",
-            "secp_affine_xy", "secp_muladd_n"} <= set(entries)
+    # the sign slice's entry points, and the comb's one entry for its
+    # three kernels (scan, blinded scan, public gather)
+    assert {"secp_fixedbase", "secp_ecdsa_finish", "secp_affine_xy",
+            "secp_muladd_n"} <= set(entries)
     # the MSM engine's: gej_add and the three fused-MSM kernels
     assert {"gej_add.cu", "msm_table.cu", "msm_winreduce.cu",
             "msm_finish.cu", "msm.cuh"} <= {p.name for p in _build.sources()}
@@ -222,6 +223,6 @@ def test_c_entry_points_match_ctypes_signatures():
     # the commitment and recovery slice's: affine_meta (B10), inv_n (B15b)
     assert {"affine_meta.cu", "inv_n.cu"} <= {p.name for p in _build.sources()}
     assert {"secp_affine_meta", "secp_inv_n"} <= set(entries)
-    # the occupancy queries beside the two redesigned kernels
-    assert {"secp_ecmult_glv_warps", "secp_msm_winreduce_warps"} \
-        <= set(entries)
+    # the occupancy queries beside the redesigned kernels
+    assert {"secp_ecmult_glv_warps", "secp_msm_winreduce_warps",
+            "secp_fixedbase_warps", "secp_msm_table_warps"} <= set(entries)

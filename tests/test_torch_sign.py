@@ -12,7 +12,13 @@ Each test walks one signing entry point through what a caller relies on:
   carried across by ``convert.blind_from_jax``, and with the port's own
   ``Context(...).randomize`` changes no byte;
 * the port's own ``verify`` accepts every signature it made;
-* asking for the default device, the card, raises where there is none.
+* asking for the default device, the card, raises where there is none;
+* a spy on ``cuda_gen`` (:func:`comb_entries`) shows which of the comb's
+  entries each path reaches: every secret scalar (signing's nonce and key,
+  here; Pedersen's and the generator's blinds in test_torch_pedersen.py)
+  the full scan, never the public gather, and the verifiers (verify here,
+  recover in test_torch_recovery.py, batch verify in test_torch_batch.py)
+  the gather alone.
 
 Tolerance: 0 — bytes, ids and masks are compared exactly.  The comparison
 with the JAX package's own ``ecdsa.sign`` / ``schnorrsig.sign`` is in the
@@ -34,6 +40,7 @@ from secp256k1_zkp_tpu.modules import schnorrsig as jschnorr
 from secp256k1_zkp_tpu_torch import context
 from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig
 from secp256k1_zkp_tpu_torch.ops import _build
+from secp256k1_zkp_tpu_torch.ops import cuda_gen
 from secp256k1_zkp_tpu_torch.ops.group import GE
 from secp256k1_zkp_tpu_torch.utils import convert
 from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
@@ -68,6 +75,31 @@ def _sec_bytes(secs):
     return _u8([d.to_bytes(32, "big") for d in secs])
 
 
+def comb_entries(fn):
+    """Run ``fn()`` with the comb's two wrappers in ``cuda_gen`` spied on
+    (the real ones still run): returns (its result, the set of entries it
+    reached — "secret" for ``fixedbase_digits``, the full scan, which
+    ``ecmult_gen`` takes too; "public" for ``fixedbase_public``)."""
+    seen = set()
+    real = {name: getattr(cuda_gen, name)
+            for name in ("fixedbase_digits", "fixedbase_public")}
+
+    def spy(name, tag):
+        def call(*args, **kw):
+            seen.add(tag)
+            return real[name](*args, **kw)
+        return call
+
+    cuda_gen.fixedbase_digits = spy("fixedbase_digits", "secret")
+    cuda_gen.fixedbase_public = spy("fixedbase_public", "public")
+    try:
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(cuda_gen, name, f)
+    return out, seen
+
+
 def _refuses_the_default_device(fn):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -78,8 +110,10 @@ def test_ecdsa_sign():
     secs, msgs, _ = _keys_and_msgs(80)
     sec_t, msg_t = _sec_bytes(secs), _u8(msgs)
     before = dict(_build.LAUNCH_COUNTS)
-    sig, recid, ok = ecdsa.sign(msg_t, sec_t, device="cpu")
+    (sig, recid, ok), comb = comb_entries(
+        lambda: ecdsa.sign(msg_t, sec_t, device="cpu"))
     assert _build.LAUNCH_COUNTS == before
+    assert comb == {"secret"}                  # k: the full scan
     assert sig.dtype == torch.uint8 and sig.shape == (len(secs), 64)
     assert recid.dtype == torch.int32 and ok.dtype == torch.bool
     assert ok.tolist() == [True] * B_GOOD + [False] * len(BAD_KEYS)
@@ -102,15 +136,18 @@ def test_ecdsa_sign():
     # blinding changes no byte: the JAX package's blind, and the port's
     for blind in (convert.blind_from_jax(_jax_blind(b"\x07" * 32)),
                   context.Context("cpu").randomize(b"\x08" * 32).blind):
-        bsig, brecid, bok = ecdsa.sign(msg_t, sec_t, blind=blind,
-                                       device="cpu")
+        (bsig, brecid, bok), comb = comb_entries(lambda: ecdsa.sign(
+            msg_t, sec_t, blind=blind, device="cpu"))
+        assert comb == {"secret"}
         assert torch.equal(bsig, sig) and torch.equal(brecid, recid)
         assert torch.equal(bok, ok)
     # the port's verify accepts what it signed
     pub = GE(*(convert.lb_from_numpy(np.array(
         [[(c >> (16 * i)) & 0xFFFF for i in range(16)] for c in col]))
         for col in zip(*pubs)), torch.zeros(B_GOOD, dtype=torch.bool))
-    assert ecdsa.verify(msg_t[:B_GOOD], sig[:B_GOOD], pub, device="cpu").all()
+    vok, comb = comb_entries(lambda: ecdsa.verify(
+        msg_t[:B_GOOD], sig[:B_GOOD], pub, device="cpu"))
+    assert vok.all() and comb == {"public"}    # u1: the gather
     # the entry point's edges: an empty batch, a lone message, the card
     esig, erecid, eok = ecdsa.sign(msg_t[:0], sec_t[:0], device="cpu")
     assert esig.shape == (0, 64) and erecid.shape == eok.shape == (0,)
@@ -133,8 +170,10 @@ def test_schnorr_sign():
     nbad = len(BAD_KEYS)
     good = [j for j in range(len(secs)) if not B_GOOD <= j < B_GOOD + nbad]
     before = dict(_build.LAUNCH_COUNTS)
-    sig, ok = schnorrsig.sign(msg_t, sec_t, aux_t, device="cpu")
+    (sig, ok), comb = comb_entries(
+        lambda: schnorrsig.sign(msg_t, sec_t, aux_t, device="cpu"))
     assert _build.LAUNCH_COUNTS == before
+    assert comb == {"secret"}                  # d and k: the full scan
     assert sig.dtype == torch.uint8 and sig.shape == (len(secs), 64)
     assert ok.tolist() == [j in good for j in range(len(secs))]
     assert not sig[B_GOOD:B_GOOD + nbad].any()
@@ -144,7 +183,9 @@ def test_schnorr_sign():
     for i, v in enumerate(BIP340_SIGN_VECTORS):
         assert bytes(sig[B_GOOD + nbad + i].tolist()).hex().upper() == v[5]
     # the keypair: x-only key, parity and the even-y secret
-    d_even, px32, parity, kok = schnorrsig.keypair_xonly(sec_t, device="cpu")
+    (d_even, px32, parity, kok), comb = comb_entries(
+        lambda: schnorrsig.keypair_xonly(sec_t, device="cpu"))
+    assert comb == {"secret"}
     assert torch.equal(kok, ok)
     for j in good:
         pt = hc.mul(secs[j])
@@ -158,12 +199,14 @@ def test_schnorr_sign():
     # blinding changes no byte: the JAX package's blind, and the port's
     for blind in (convert.blind_from_jax(_jax_blind(b"\x09" * 32)),
                   context.Context("cpu").randomize(b"\x0a" * 32).blind):
-        bsig, bok = schnorrsig.sign(msg_t, sec_t, aux_t, blind=blind,
-                                    device="cpu")
+        (bsig, bok), comb = comb_entries(lambda: schnorrsig.sign(
+            msg_t, sec_t, aux_t, blind=blind, device="cpu"))
+        assert comb == {"secret"}
         assert torch.equal(bsig, sig) and torch.equal(bok, ok)
     # the port's verify accepts what it signed
-    assert schnorrsig.verify(msg_t[good], sig[good], px32[good],
-                             device="cpu").all()
+    vok, comb = comb_entries(lambda: schnorrsig.verify(
+        msg_t[good], sig[good], px32[good], device="cpu"))
+    assert vok.all() and comb == {"public"}    # s: the gather
     esig, eok = schnorrsig.sign(msg_t[:0], sec_t[:0], device="cpu")
     assert esig.shape == (0, 64) and eok.shape == (0,)
     _refuses_the_default_device(lambda: schnorrsig.sign(msg_t, sec_t))

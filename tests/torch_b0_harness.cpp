@@ -5,9 +5,15 @@
 // calls it through ctypes.  Field elements are 8 little-endian 32-bit
 // words; points 25 words (x, y, z, inf).  Every call writes its result over
 // a copy of its first operand, as the kernels do (r aliases a).
+//
+// Beside the core, the host-compilable pieces of two kernels: the comb's
+// T-thread sum (csrc/comb.cuh's comb_partial, joined by the tree of
+// fixedbase.cu's shuffles, written out here over an array in the same
+// order) and msm_table.cu's lane (csrc/msm.cuh's msm_table_lane).
 #include <string.h>
 
-#include "group.cuh"
+#include "comb.cuh"
+#include "msm.cuh"
 
 static fe ld(const uint32_t* p) {
     fe r;
@@ -66,6 +72,46 @@ void b0_jp(int op, const uint32_t* a, const uint32_t* b, uint32_t* r,
         else jp_add_to(p, p, q);
         stj(r + 25 * i, p);
     }
+}
+
+// the comb of csrc/fixedbase.cu on n lanes, T threads a lane (mode:
+// COMB_SCAN or COMB_GATHER of comb.cuh): gdigs [37, n] rows, table
+// [37][64][16] words; out[25 * lane] the canonical x, y, z (z = 0 at
+// infinity) and the infinity flag, as the kernel stores them
+void b0_comb(const uint32_t* gdigs, const uint32_t* table, int n, int T,
+             int mode, uint32_t* out) {
+    for (int lane = 0; lane < n; ++lane) {
+        jp part[8], next[8];
+        for (int t = 0; t < T; ++t) {
+            if (mode == COMB_GATHER)
+                comb_partial<COMB_GATHER>(part[t], gdigs, table, n, lane, t,
+                                          T);
+            else
+                comb_partial<COMB_SCAN>(part[t], gdigs, table, n, lane, t, T);
+        }
+        // the kernel's shuffle tree: at each level thread t adds what
+        // thread t + s holds (its own value where t + s falls outside the
+        // team, as __shfl_down_sync with width T gives)
+        for (int s = T >> 1; s > 0; s >>= 1) {
+            for (int t = 0; t < T; ++t)
+                jp_add_to(next[t], part[t], part[t + s < T ? t + s : t]);
+            for (int t = 0; t < T; ++t) part[t] = next[t];
+        }
+        jp r = part[0];
+        r.x = fe_canon(r.x);
+        r.y = fe_canon(r.y);
+        r.z = select256(r.inf, fe_zero(), fe_canon(r.z));
+        stj(out + 25 * lane, r);
+    }
+}
+
+// msm_table.cu's lane for each of n points (px, py [16, n] limb-major,
+// pinf [n]): tab [n][15][16] words, with the kernel's word-major scratch
+void b0_msm_table(const uint32_t* px, const uint32_t* py,
+                  const uint32_t* pinf, int n, uint32_t* tab,
+                  uint32_t* scratch) {
+    for (int lane = 0; lane < n; ++lane)
+        msm_table_lane(px, py, pinf, tab, n, scratch, lane);
 }
 
 }
