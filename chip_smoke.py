@@ -15,15 +15,16 @@ generators from 64 asset tags (``modules.generator.generator_generate``
 and ``generator_serialize``, at 16,384), Pedersen commitments to them
 (``generator.pedersen_commit_bytes``), the tally check
 (``generator.pedersen_verify_tally``) and ECDSA public-key recovery
-(``modules.ecdsa.recover``) at both sizes — builds the seventeen
-hand-written kernels from the sources in this checkout, holds each (and
-the comb's blinded and public entries) against its plain PyTorch version
-on the card at every shape those paths give it (exact equality: the
-values are integers, the tolerance is 0; the MSM engine's window partials
-and finish lanes as points, since their jacobian form depends on the
-order of the additions, and so the comb's lanes, whose thread teams add
-the rows in another order, and their words where a launch runs one
-thread a lane), checks every signature, generator and
+(``modules.ecdsa.recover``) at both sizes — builds the hand-written
+kernels from the sources in this checkout, holds each (and the comb's
+blinded and public entries, and ``gej_add``'s lane sum ``gej_sum``)
+against its plain PyTorch version on the card at every shape those paths
+give it (exact equality: the values are integers, the tolerance is 0;
+the MSM engine's window partials and finish result and the lane sum's
+result as points, since their jacobian form depends on the order of the
+additions, and so the comb's lanes, whose thread teams add the rows in
+another order, and their words where a launch runs one thread a lane),
+checks every signature, generator and
 commitment byte against one made on the host with Python integers,
 ``hashlib`` and ``hmac``, feeds the port's own signatures to its verify
 and recovers their keys, checks batch verification's verdicts and its
@@ -57,7 +58,8 @@ adds with carry and shifts) and all instructions, less the probe's loads
 and stores.  ``bound_ms`` stays the column that ranks the kernels.
 
 Phase ``build`` fails if a redesigned kernel (``STACK_FREE``: B3, B13,
-the comb's kernels, ``msm_table_kernel``) reports a stack or a spill in
+the comb's kernels, ``msm_table_kernel``, ``msm_finish_kernel``,
+``gej_sum_kernel`` and ``gej_add_kernel``) reports a stack or a spill in
 ``ptxas -v``, or if the comb's secret row scan spends more than about one
 instruction (LOP3 or SEL) a word on its selects (``sass["scan"]``);
 phase ``timing`` gives the warps per SM of their launches
@@ -66,6 +68,16 @@ phase ``timing`` gives the warps per SM of their launches
 follows, at 16,384, 262,144 and 2^20 points, and a sweep of the comb's
 threads a lane (T = 1, 2, 4, 8; each T's points checked) at both sizes
 beside the T the wrapper's rule picks.
+
+``msm_finish`` and ``gej_sum`` are bound by latency: a chain of additions
+in sequence that no design can shorten.  Beside ``bound_ms`` they carry
+``bound_lat_ms``, that chain priced by ``csrc/msm_finish.cu``'s latency
+probe (a dependent chain of doublings, of doublings by a pair of threads
+and of complete adds, on the same inlined core; ``lat_double_ms``,
+``lat_pair_double_ms``, ``lat_add_ms``, the faster doubling counting):
+for the finish 4(nwin - 1) doublings and ceil(log2 nwin) + ceil(log2
+nblk) adds, for the lane sum ceil(B / threads) + ceil(log2 min(B,
+threads)) adds, threads those of its launch.
 
 ``fixedbase_public`` is the comb's gather entry for public scalars
 (verify, recover, batch verify): it must never run on a secret-scalar
@@ -94,9 +106,12 @@ batch with 0, 1, n - 1, n + 2 and 2^256 - 1 on lanes 0-4.
 
 The MSM engine's bounds count this run's data: ``msm_winreduce`` one mixed
 add per nonzero digit of a finite point (zero digits and infinite points
-add nothing), reading the table, digits and flags once; ``msm_finish`` four
-doublings per window on each of its lanes and one jacobian add per
-partial; ``gej_add`` is read at the widest collapse level (64 lanes).
+add nothing), reading the table, digits and flags once; ``msm_finish`` one
+accumulator's 4(nwin - 1) doublings and one jacobian add per partial (the
+window sums and the join of the windows); ``gej_sum`` one jacobian add per
+lane.  ``gej_add`` is read at batch verify's right-hand add (one lane) and
+at the blinded generator's adds (16,384 lanes); ``gej_sum`` at the tally's
+sums (16,384 and 262,144 lanes).
 """
 
 from __future__ import annotations
@@ -181,6 +196,8 @@ OPS = {
     # the 37 rows and the blinding point, one mixed add each
     "fixedbase_blinded": 38 * ADD_AFF,
     "gej_add": ADD_JAC,
+    # per lane joined (msm_bound: B - 1 adds)
+    "gej_sum": ADD_JAC,
     # 2P, 13 mixed adds with z-ratios; the inverses of the last Z by
     # Montgomery's trick over 32 lanes (3 multiplies a lane and one safegcd
     # inverse: the function's least work; the kernel inverts each lane,
@@ -190,8 +207,9 @@ OPS = {
                   + SQR + 3 * MUL + 13 * (SQR + 4 * MUL)),
     # per nonzero digit of a finite point (msm_bound)
     "msm_winreduce": ADD_AFF,
-    # per lane and window (msm_bound; plus one ADD_JAC per partial)
-    "msm_finish": 4 * DOUBLE,
+    # per doubling of the one accumulator (msm_bound: 4(nwin - 1) of them,
+    # plus one ADD_JAC per partial)
+    "msm_finish": DOUBLE,
     # the affine conversion (inverse, Z^-2, Z^-3, x, y), Y*Z^3 (a square
     # and two multiplies), the sqrt chain (253 S + 13 M) and the check r^2
     "affine_meta": (MODINV + SQR + 3 * MUL + SQR + 2 * MUL
@@ -215,6 +233,7 @@ WORDS = {
     "muladd_n": 3 * 16 + 1 + 16,
     "fixedbase_blinded": 37 + 3 * 16,   # -b*G: 16 words for all lanes
     "gej_add": 3 * (3 * 16 + 1),
+    "gej_sum": 3 * 16 + 1,        # read; the one point out is negligible
     "msm_table": 2 * 16 + 1 + 15 * 16,
     "affine_meta": 3 * 16 + 2 * 16 + 1,
     "inv_n": 16 + 16,
@@ -236,6 +255,9 @@ REPLACES = {
     "fixedbase_blinded": "secp256k1_zkp_tpu/ops/pallas_gen.py:114 "
                          "(blinded, tail at :162-165)",
     "gej_add": "secp256k1_zkp_tpu/ops/pallas_group.py:326",
+    # the add kernel summing a batch: the JAX _tree_reduce's levels
+    "gej_sum": "secp256k1_zkp_tpu/ops/pallas_group.py:326 (as the lane sum "
+               "of ops/msm.py:46 _tree_reduce)",
     "msm_table": "secp256k1_zkp_tpu/ops/pallas_msm.py:58",
     "msm_winreduce": "secp256k1_zkp_tpu/ops/pallas_msm.py:131",
     "msm_finish": "secp256k1_zkp_tpu/ops/pallas_msm.py:224 "
@@ -259,6 +281,7 @@ SOURCES = {
     "muladd_n": "secp256k1_zkp_tpu_torch/csrc/muladd_n.cu",
     "fixedbase_blinded": "secp256k1_zkp_tpu_torch/csrc/fixedbase.cu",
     "gej_add": "secp256k1_zkp_tpu_torch/csrc/gej_add.cu",
+    "gej_sum": "secp256k1_zkp_tpu_torch/csrc/gej_add.cu",
     "msm_table": "secp256k1_zkp_tpu_torch/csrc/msm_table.cu",
     "msm_winreduce": "secp256k1_zkp_tpu_torch/csrc/msm_winreduce.cu",
     "msm_finish": "secp256k1_zkp_tpu_torch/csrc/msm_finish.cu",
@@ -274,7 +297,10 @@ KERNEL_FUNCS = {"ecmult_glv": "ecmult_glv_kernel",
                 "fixedbase_digits": "fixedbase_kernel",
                 "fixedbase_blinded": "fixedbase_blinded_kernel",
                 "fixedbase_public": "fixedbase_public_kernel",
-                "msm_table": "msm_table_kernel"}
+                "msm_table": "msm_table_kernel",
+                "msm_finish": "msm_finish_kernel",
+                "gej_sum": "gej_sum_kernel",
+                "gej_add": "gej_add_kernel"}
 STACK_FREE = tuple(KERNEL_FUNCS.values())
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_public", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_public",
@@ -285,17 +311,17 @@ SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded",
 COMB_KERNELS = {"fixedbase_digits": (cuda_gen.COMB_SCAN, False),
                 "fixedbase_blinded": (cuda_gen.COMB_SCAN, True),
                 "fixedbase_public": (cuda_gen.COMB_GATHER, False)}
-MSM_KERNELS = ("gej_add", "msm_table", "msm_winreduce", "msm_finish")
+MSM_KERNELS = ("msm_table", "msm_winreduce", "msm_finish")
 COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
-# the collapse of msm_finish's lanes: one gej_add launch a halving level
-COLLAPSE_LEVELS = cuda_msm.FINISH_LANES.bit_length() - 1
+# gej_sum's edge sets: these lane counts, and two lanes P, -P
+SUM_EDGE_LANES = (1, 2, 3, 65, 1024 + 37, 262144)
 MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
 # msm_winreduce chunk counts timed beside the chosen one: at 64 windows
 # from about two warps an SM of 132 (one block an SM at most) to many waves
 NBLK_SWEEP = (4, 8, 16, 33, 66, 132, 264, 528, 1056, 2112)
 ASSET_TAGS = 64                   # generators made from this many tags
 # the tally's negative side: one commitment per asset tag and one that
-# carries the blinds (65 lanes: 7 levels of its add tree)
+# carries the blinds
 TALLY_NEG_LANES = ASSET_TAGS + 1
 # RFC6979 with two candidates: four HMACs to seed the DRBG and three per
 # candidate, each HMAC two one-block compressions of the key block and two
@@ -318,15 +344,13 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          # BIP-340 batch verify of n signatures: the tagged hashes of the
          # challenges, the leaves, each of the ceil(log2 n) node levels and
          # the randomizers; the lifts of P and R; z*e and z*s; two MSMs
-         # (table, window reduce, finish, the collapse's gej_add levels);
-         # rhs = one more gej_add; (sum z s)*G by the comb's gather entry
+         # (table, window reduce, finish); rhs = their sum by gej_add;
+         # (sum z s)*G by the comb's gather entry
          "schnorr_batch": lambda n: {
              "sha256": 3 + (n - 1).bit_length(), "lift_x": 2,
              "muladd_n": 2, "fixedbase_public": 1, "msm_table": 2,
-             "msm_winreduce": 2, "msm_finish": 2,
-             "gej_add": 2 * COLLAPSE_LEVELS + 1},
-         "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1,
-                 "gej_add": COLLAPSE_LEVELS},
+             "msm_winreduce": 2, "msm_finish": 2, "gej_add": 1},
+         "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1},
          # b*G by the comb, v*H + b*G by GLV Strauss, the 33 bytes
          "pedersen": {"fixedbase_digits": 1, "ecmult_glv": 1,
                       "affine_meta": 1},
@@ -339,9 +363,8 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          "recover": {"inv_n": 1, "lift_x": 1, "muladd_n": 1, "glv_only": 1,
                      "fixedbase_public": 1, "ecmult_glv": 1,
                      "affine_xy": 1},
-         # two add trees: ceil(log2) levels of gej_add for each side
-         "tally": lambda n: {"gej_add": (n - 1).bit_length()
-                             + (TALLY_NEG_LANES - 1).bit_length()}}
+         # one lane sum for each side
+         "tally": {"gej_sum": 2}}
 
 
 def path_launches(path: str, lanes: int) -> dict:
@@ -538,12 +561,58 @@ def msm_bound(name: str, t: dict):
                         4 * (lanes * (15 * 16 + 1) + nwin * lanes
                              + parts * 49))
     if name == "msm_finish":
-        parts, lanes = t["x"].shape[1], cuda_msm.FINISH_LANES
-        return bound_of(lanes * t["nwin"] * OPS[name] + parts * ADD_JAC,
-                        4 * 49 * (parts + lanes))
+        parts = t["x"].shape[1]
+        return bound_of(4 * (t["nwin"] - 1) * OPS[name] + parts * ADD_JAC,
+                        4 * 49 * (parts + 1))
+    if name == "gej_sum":
+        lanes = t["x"].shape[1]
+        return bound_of((lanes - 1) * OPS[name], 4 * 49 * (lanes + 1))
     if name == "gej_add":
         return bound_ms(name, t["a"][0].shape[1])
     return bound_ms(name, t["px"].shape[1])
+
+
+def _log2_ceil(n: int) -> int:
+    return (n - 1).bit_length()
+
+
+def latency_ms(lib, dev) -> dict:
+    """ms of one operation in a dependent chain on one thread
+    (``secp_latency_probe``, the inlined core): a doubling, a complete
+    add, a doubling by a pair of threads, a field squaring and a field
+    multiply.  The slope of CUDA-event times of chains of 256 and 2,048,
+    from G."""
+    io = torch.tensor([w - (1 << 32) if w >= 1 << 31 else w for c in (
+        hc.GX, hc.GY, 1) for w in ((c >> (32 * i)) & 0xFFFFFFFF
+                                   for i in range(8))] + [0],
+        dtype=torch.int32, device=dev)
+    out = {}
+    for op, key in ((0, "lat_double_ms"), (1, "lat_add_ms"),
+                    (2, "lat_pair_double_ms"), (3, "lat_sqr_ms"),
+                    (4, "lat_mul_ms")):
+        def chain(n):
+            _build.check(lib.secp_latency_probe(io.data_ptr(), op, n,
+                                                _build.stream_ptr()),
+                         "latency_probe")
+        lo, hi = (time_ms(lambda: chain(n), reps=9) for n in (256, 2048))
+        out[key] = (hi - lo) / (2048 - 256)
+    return out
+
+
+def bound_lat_ms(name: str, t: dict, lat: dict) -> float:
+    """The least time of the chain of additions in sequence that ``name``
+    must run on ``t`` (module docstring), priced by :func:`latency_ms`."""
+    if name == "msm_finish":
+        nwin = t["nwin"]
+        nblk = t["x"].shape[1] // nwin
+        double = min(lat["lat_double_ms"], lat["lat_pair_double_ms"])
+        return (4 * (nwin - 1) * double
+                + (_log2_ceil(nwin) + _log2_ceil(nblk)) * lat["lat_add_ms"])
+    lanes = t["x"].shape[1]
+    threads = cuda_group.SUM_THREADS * cuda_group.sum_blocks(
+        lanes, torch.cuda.get_device_properties(0).multi_processor_count)
+    return ((-(-lanes // threads) + _log2_ceil(min(lanes, threads)))
+            * lat["lat_add_ms"])
 
 
 # --- host-built signatures --------------------------------------------------
@@ -1421,8 +1490,7 @@ def catch(fn, targets):
 MSM_TARGETS = {"msm_table": (cuda_msm, "msm_table"),
                "msm_winreduce": (cuda_msm, "msm_winreduce"),
                "msm_finish": (cuda_msm, "msm_finish"),
-               "gej_add": (cuda_msm, "gej_add"),
-               "gej_add_rhs": (cuda_group, "gej_add")}
+               "gej_add": (cuda_group, "gej_add")}
 SHA_TARGETS = {"sha256": (cuda_sha256, "sha256_blocks")}
 BATCH_TARGETS = {**MSM_TARGETS, **SHA_TARGETS,
                  "lift_x": (cuda_field, "lift_x"),
@@ -1431,15 +1499,18 @@ BATCH_TARGETS = {**MSM_TARGETS, **SHA_TARGETS,
 # the comb's entries, caught on the recover, commit and generator paths
 PUBLIC_COMB_TARGET = {"fixedbase_public": (cuda_gen, "fixedbase_public")}
 SECRET_COMB_TARGET = {"fixedbase_digits": (cuda_gen, "fixedbase_digits")}
+# the tally's lane sums (ops/msm.py calls gej_sum by its own name)
+SUM_TARGET = {"gej_sum": (msm, "gej_sum")}
 
 
 def msm_sets(seen, off_curve: bool = False):
     """The operands of every launch caught by :func:`catch`, as tensor
-    sets for :func:`compare`, by kernel; the 64-lane collapse operands
-    with P + P, P + (-P) and infinity lanes mixed in; with ``off_curve``,
-    the first table's operands with a point off the curve on lane 1."""
-    sets = {k: [] for k in (*MSM_KERNELS, "sha256", "lift_x", "muladd_n",
-                            "fixedbase_public")}
+    sets for :func:`compare`, by kernel; for ``gej_add`` also the last
+    MSM's window partials added to themselves with P + P, P + (-P) and
+    infinity lanes mixed in; with ``off_curve``, the first table's
+    operands with a point off the curve on lane 1."""
+    sets = {k: [] for k in (*MSM_KERNELS, "gej_add", "sha256", "lift_x",
+                            "muladd_n", "fixedbase_public")}
     for (state, blocks), _ in seen.get("sha256", []):
         sets["sha256"].append(dict(sha_state=state, sha_blocks=blocks))
     for (px,), _ in seen.get("lift_x", []):
@@ -1455,7 +1526,7 @@ def msm_sets(seen, off_curve: bool = False):
                                           nblk=nblk, nwin=digs.shape[0]))
     for (x, y, z, inf, nwin), _ in seen["msm_finish"]:
         sets["msm_finish"].append(dict(x=x, y=y, z=z, inf=inf, nwin=nwin))
-    for (a, b), _ in seen["gej_add"] + seen["gej_add_rhs"]:
+    for (a, b), _ in seen["gej_add"]:
         sets["gej_add"].append(dict(a=a, b=b))
     if off_curve:
         # msm_table on (0, 0), off the curve: its chain's Z is 0, its
@@ -1465,15 +1536,90 @@ def msm_sets(seen, off_curve: bool = False):
         px[:, 1] = 0
         py[:, 1] = 0
         sets["msm_table"].append(dict(px=px, py=py, pinf=t["pinf"]))
-    # degenerate adds on the widest collapse operand: b = a (doubling) on
-    # even lanes, b = -a on odd lanes, infinity on every fifth
-    a = sets["gej_add"][0]["a"]
+    # degenerate adds on a wide operand, the last MSM's window partials:
+    # b = a (doubling) on even lanes, b = -a on odd lanes, infinity on
+    # every fifth
+    f = sets["msm_finish"][-1]
+    a = (f["x"], f["y"], f["z"], f["inf"])
     x, y, z, inf = (t.clone() for t in a)
     y[:, 1::2] = cuda_field._neg_canon(y[:, 1::2].to(torch.int64)) \
         .to(y.dtype)
     inf[::5] = True
     sets["gej_add"].append(dict(a=a, b=(x, y, z, inf)))
     return sets
+
+
+def finish_edge_sets(f128, f256):
+    """msm_finish's edge partial sets, from batch verify's two finish
+    operands at 262,144 lanes (32 windows of 33 partials, 64 of 16; both
+    shapes are also checked as they are): the 64 windows with window 5's
+    partials P, -P and nothing else; 32 windows of one partial each
+    (nblk = 1); the same with every partial infinite (the MSM of all-zero
+    scalars).  Three sets, as each plain finish takes seconds on the card.
+    (label, operand set) pairs."""
+    x, y, z, inf = (f256[k].clone() for k in ("x", "y", "z", "inf"))
+    nblk = x.shape[1] // 64
+    c = 5 * nblk
+    if bool(inf[c]):
+        raise SystemExit("finish edge set: partial 0 of window 5 is "
+                         "infinite")
+    for t in (x, y, z):
+        t[:, c + 1] = t[:, c]
+    y[:, c + 1] = cuda_field._neg_canon(y[:, c:c + 1].to(torch.int64)) \
+        .to(y.dtype)[:, 0]
+    inf[c + 2:c + nblk] = True
+    inf[c + 1] = False
+    one = torch.arange(32, device=x.device) * (f128["x"].shape[1] // 32)
+    single = {k: f128[k][..., one].contiguous()
+              for k in ("x", "y", "z", "inf")}
+    return [(f"64 windows of {nblk} partials, window 5 = P + (-P)",
+             dict(nwin=64, x=x, y=y, z=z, inf=inf)),
+            ("32 windows of 1 partial", dict(nwin=32, **single)),
+            ("32 windows of 1 partial, all infinite", dict(
+                single, nwin=32, inf=torch.ones_like(single["inf"])))]
+
+
+def sum_edge_sets(x, y, z, inf):
+    """gej_sum's edge sets from a tally operand of 262,144 lanes: the first
+    B lanes for each of SUM_EDGE_LANES, with lane 1 = lane 0 (P + P),
+    the last lane the negation of the one before it (a cancelling pair),
+    infinity on lanes 6, 13, 20, ...; where B exceeds the launch's
+    threads, lane `threads` = lane 0 and lane `threads` + 2 = -(lane 2),
+    pairs a thread's fold meets; and the two lanes P, -P.  (label,
+    operand set) pairs."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    out = []
+
+    def neg(t):
+        return cuda_field._neg_canon(t.to(torch.int64)).to(t.dtype)
+
+    for lanes in SUM_EDGE_LANES:
+        t = dict(x=x[:, :lanes].clone(), y=y[:, :lanes].clone(),
+                 z=z[:, :lanes].clone(), inf=inf[:lanes].clone())
+        t["inf"][6::7] = True
+        threads = cuda_group.SUM_THREADS * cuda_group.sum_blocks(lanes, sms)
+        pairs = [(0, 1, False)]
+        if lanes > threads:
+            pairs += [(0, threads, False), (2, threads + 2, True)]
+        if lanes >= 3:
+            pairs.append((lanes - 2, lanes - 1, True))
+        for src, dst, negate in pairs:
+            if dst >= lanes:
+                continue
+            for k in ("x", "y", "z"):
+                t[k][:, dst] = t[k][:, src]
+            if negate:
+                t["y"][:, dst] = neg(t["y"][:, src:src + 1])[:, 0]
+            t["inf"][dst] = t["inf"][src] = False
+        out.append((f"{lanes} lanes, P + P, a cancelling pair, infinite "
+                    "lanes", t))
+    t = {k: v[..., :2].clone() for k, v in (("x", x), ("y", y), ("z", z),
+                                            ("inf", inf))}
+    t["y"][:, 1] = neg(t["y"][:, :1])[:, 0]
+    t["x"][:, 1], t["z"][:, 1] = t["x"][:, 0], t["z"][:, 0]
+    t["inf"][:] = False
+    out.append(("2 lanes, P + (-P)", t))
+    return out
 
 
 def ssign_inputs(msgs, secs, auxs, dev):
@@ -1552,6 +1698,9 @@ def run_pair(name, t, use_ref: bool):
     if name == "msm_finish":
         f = cuda_msm.msm_finish_ref if use_ref else cuda_msm.msm_finish
         return f(t["x"], t["y"], t["z"], t["inf"], t["nwin"])
+    if name == "gej_sum":
+        f = cuda_group.gej_sum_ref if use_ref else cuda_group.gej_sum
+        return f(t["x"], t["y"], t["z"], t["inf"])
     if name == "affine_meta":
         f = cuda_field.affine_meta_ref if use_ref else cuda_field.affine_meta
         return f(*t["R"])
@@ -1563,14 +1712,14 @@ def run_pair(name, t, use_ref: bool):
 
 
 # results compared as points, made affine: each window's partials summed
-# (their jacobian form depends on the order of the additions), each finish
-# lane on its own, and the comb's lanes where a team of T > 1 threads adds
-# the rows in another order than the plain version (with T = 1 the words
-# are equal and are compared)
+# (their jacobian form depends on the order of the additions), the finish's
+# and the lane sum's one point, and the comb's lanes where a team of T > 1
+# threads adds the rows in another order than the plain version (with
+# T = 1 the words are equal and are compared)
 AS_POINTS = {
     "msm_winreduce": lambda out, t: cuda_msm.points_affine(*out, t["nwin"]),
-    "msm_finish": lambda out, t: cuda_msm.points_affine(
-        *out, cuda_msm.FINISH_LANES),
+    "msm_finish": lambda out, t: cuda_msm.points_affine(*out, 1),
+    "gej_sum": lambda out, t: cuda_msm.points_affine(*out, 1),
     **{k: lambda out, t: cuda_gen.affine_xy_ref(*out) for k in COMB_KERNELS}}
 
 
@@ -1786,9 +1935,9 @@ def main() -> int:
         del sha_sets
         # batch verify: every kernel of the path on the operands of one
         # call, caught at the wrappers — both MSMs (128- and 256-bit
-        # scalars), the 14 collapse levels and the rhs add, the hashes
-        # (leaves, node levels, randomizers, challenges), the lifts, z*e
-        # and z*s, and (sum z s)*G
+        # scalars) and the rhs add, the hashes (leaves, node levels,
+        # randomizers, challenges), the lifts, z*e and z*s, and
+        # (sum z s)*G; the finish also on edge partial sets
         _, seen = catch(lambda: schnorrsig.batch_verify(
             *bbatches[n][0]["valid"], device=dev), BATCH_TARGETS)
         bsets = msm_sets(seen, off_curve=n == ragged)
@@ -1798,15 +1947,19 @@ def main() -> int:
             record(name, f"{n} lanes, batch verify: {len(checks)} launches",
                    max(e for e, _ in checks), sum(ms for _, ms in checks))
             if name in MSM_KERNELS:
-                # read at the 256-bit MSM's launch (the 64-lane collapse
-                # level for gej_add)
-                plain_ms = checks[0 if name == "gej_add" else 1][1]
+                # read at the 256-bit MSM's launch
                 if n == sizes[0]:
-                    results[name]["plain_ms"] = plain_ms
+                    results[name]["plain_ms"] = checks[1][1]
                 elif n in sizes:
-                    results[name][f"plain_ms_{n}"] = plain_ms
+                    results[name][f"plain_ms_{n}"] = checks[1][1]
+            elif name == "gej_add" and n in sizes:
+                results[name][f"rhs_plain_ms_{n}"] = checks[0][1]
+        if n == sizes[1]:
+            for label, t in finish_edge_sets(*bsets["msm_finish"]):
+                err, plain_ms = compare("msm_finish", t)
+                record("msm_finish", label, err, plain_ms)
         if n in sizes:
-            btensors[n] = {k: bsets[k] for k in MSM_KERNELS}
+            btensors[n] = {k: bsets[k] for k in (*MSM_KERNELS, "gej_add")}
         del bsets
     # commitments and recovery: affine_meta on the commit pipeline's
     # jacobian result (caught from one pedersen_commit_bytes call) with
@@ -1998,7 +2151,6 @@ def main() -> int:
         checks = [compare(name, t) for t in tsets]
         record(name, f"{MSM_POINTS} points, msm: {len(checks)} launches",
                max(e for e, _ in checks), sum(ms for _, ms in checks))
-        # the one launch; the widest collapse level for gej_add
         results[name][f"plain_ms_{MSM_POINTS}"] = checks[0][1]
     bad = [k for k in MSM_KERNELS if not results[k]["match"]]
     if bad:
@@ -2015,12 +2167,21 @@ def main() -> int:
 
     t1 = time.perf_counter()
     (hgen, hok, hser), seen = catch(lambda: counted(
-        "generator_blinded", generate_and_serialize), SECRET_COMB_TARGET)
+        "generator_blinded", generate_and_serialize),
+        {**SECRET_COMB_TARGET, "gej_add": (cuda_group, "gej_add")})
     gen_s = time.perf_counter() - t1
     err, plain_ms = compare("fixedbase_digits", dict(
         gdigs=seen["fixedbase_digits"][0][0][0]))
     record("fixedbase_digits", f"{sizes[0]} lanes, generator blind", err,
            plain_ms)
+    # gej_add at full width: H1 + H2 and + b*G
+    gen_adds = [dict(a=a, b=b) for (a, b), _ in seen["gej_add"]]
+    checks = [compare("gej_add", t) for t in gen_adds]
+    record("gej_add", f"{sizes[0]} lanes, generator: {len(checks)} "
+           "launches", max(e for e, _ in checks),
+           sum(ms for _, ms in checks))
+    results["gej_add"]["plain_ms"] = checks[0][1]
+    del seen
     wrong = int(((hser.cpu().numpy() != gwant).any(1)
                  | ~hok.cpu().numpy()).sum())
     emit("main_path", path="generator_blinded", lanes=sizes[0],
@@ -2028,7 +2189,7 @@ def main() -> int:
          launches=PATHS["generator_blinded"])
     if wrong:
         raise SystemExit(f"generator_generate wrong on {wrong} lanes")
-    rdata = {}
+    rdata, sum_sets = {}, {}
     for n in sizes:
         blinds, hi, lo, pgens, want, want_ok = pbatches[n]
         # the port's generators, tiled as the jobs are; lane 4 infinite
@@ -2047,25 +2208,42 @@ def main() -> int:
         # asset tag and one carrying the blinds, balanced and off by one
         pos, pos_ok = generator.pedersen_commit(
             *make_pedersen_batch(pbase, n, edges=False)[:4], device=dev)
-        verdicts = []
+        verdicts, sums = [], []
         for side in make_tally(pbase, n):
             neg, neg_ok = generator.pedersen_commit(*side, device=dev)
             if not (pos_ok.all() and neg_ok.all()):
                 raise SystemExit(f"tally inputs at {n} lanes not committed")
-            ok = counted("tally", lambda: generator.pedersen_verify_tally(
-                pos, neg), n)
+            ok, seen = catch(lambda: counted(
+                "tally", lambda: generator.pedersen_verify_tally(pos, neg)),
+                SUM_TARGET)
             assert ok.shape == () and ok.dtype == torch.bool and ok.is_cuda
             verdicts.append(bool(ok))
+            # the positive side once: both calls sum the same commitments
+            sums += [dict(x=x, y=y, z=z, inf=inf) for (x, y, z, inf), _
+                     in seen["gej_sum"][1 if sums else 0:]]
         emit("main_path", path="pedersen", lanes=n, ok=int(cok.sum()),
              wrong_lanes=wrong, parse_roundtrip_wrong=unparsed,
              tally_balanced=verdicts[0], tally_off_by_one=verdicts[1],
-             launches=PATHS["pedersen"],
-             launches_tally=path_launches("tally", n))
+             launches=PATHS["pedersen"], launches_tally=PATHS["tally"])
         if wrong or unparsed or verdicts != [True, False]:
             raise SystemExit(f"pedersen wrong at {n} lanes: {wrong} "
                              f"commitments, {unparsed} parsed, tally "
                              f"{verdicts}")
-        del pos, neg
+        # the lane sum on the tally's operands (after the counts were
+        # read), and at 262,144 on the edge sets made from them
+        checks = [compare("gej_sum", t) for t in sums]
+        record("gej_sum", f"{n} lanes, tally: {len(checks)} launches "
+               f"of {sorted({t['x'].shape[1] for t in sums})} lanes",
+               max(e for e, _ in checks), sum(ms for _, ms in checks))
+        results["gej_sum"]["plain_ms" if n == sizes[0]
+                           else f"plain_ms_{n}"] = checks[0][1]
+        sum_sets[n] = sums[0]
+        if n == sizes[1]:
+            for label, t in sum_edge_sets(*(sums[0][k] for k in
+                                            ("x", "y", "z", "inf"))):
+                err, plain_ms = compare("gej_sum", t)
+                record("gej_sum", label, err, plain_ms)
+        del pos, neg, sums
         msgs, _, _, _, sign_ok, pub = gbatches[n]
         rm, rs, rr, rok, kx, ky = make_recover_batch(msgs, *port_sigs[n],
                                                      sign_ok, pub)
@@ -2133,30 +2311,76 @@ def main() -> int:
                                          bound_by=b_by)
                 emit("timing", name=pre + name, lanes=n, ms=ms,
                      bound_ms=b_ms, bound_by=b_by, lanes_per_s=n / ms * 1e3)
-    # the MSM engine: the 256-bit MSM's launch of each kernel (the widest
-    # collapse level for gej_add) at both batch-verify sizes and on the
-    # 2^20-point MSM; the 128-bit MSM's launches beside them
+    # the latency floor of the finish and the lane sum: one doubling and
+    # one complete add in a dependent chain on one thread
+    lib = _build.lib()
+    lat = latency_ms(lib, dev)
+    emit("timing", name="latency_probe", **lat)
+    # the MSM engine: the 256-bit MSM's launch of each kernel at both
+    # batch-verify sizes and on the 2^20-point MSM; the 128-bit MSM's
+    # launches beside them; the finish's latency floor beside its bound
     for name in MSM_KERNELS:
         for n, tsets in ((sizes[0], btensors[sizes[0]]),
                          (sizes[1], btensors[sizes[1]]),
                          (MSM_POINTS, msets)):
             picks = [("", tsets[name][0])]
-            if name != "gej_add" and n in sizes:
+            if n in sizes:
                 picks = [("", tsets[name][1]), ("128bit_", tsets[name][0])]
             for pre, t in picks:
                 ms = time_ms(lambda: run_pair(name, t, False))
                 b_ms, b_by = msm_bound(name, t)
                 results[name][f"{pre}ms_{n}"] = ms
                 results[name][f"{pre}bound_ms_{n}"] = b_ms
-                lanes = t["a"][0].shape[1] if name == "gej_add" else n
+                lat_ms = {}
+                if name == "msm_finish":
+                    lat_ms["bound_lat_ms"] = bound_lat_ms(name, t, lat)
+                    results[name][f"{pre}bound_lat_ms_{n}"] = \
+                        lat_ms["bound_lat_ms"]
                 if n == sizes[0] and not pre:
-                    results[name].update(ms=ms, lanes=lanes, bound_ms=b_ms,
-                                         bound_by=b_by)
-                emit("timing", name=pre + name, points=n, lanes=lanes, ms=ms,
-                     bound_ms=b_ms, bound_by=b_by)
+                    results[name].update(ms=ms, lanes=n, bound_ms=b_ms,
+                                         bound_by=b_by, **lat_ms)
+                emit("timing", name=pre + name, points=n, ms=ms,
+                     bound_ms=b_ms, bound_by=b_by, **lat_ms)
+    results["msm_finish"].update(lat)
+    # gej_add on its main-path operands: the blinded generator's adds
+    # (16,384 lanes) and batch verify's rhs (one lane) at both sizes, 15
+    # timings a point (a launch is ~0.1 ms, most of it the wrapper's)
+    for pre, n, t in (("", sizes[0], gen_adds[0]),
+                      *(("rhs_", n, btensors[n]["gej_add"][0])
+                        for n in sizes)):
+        ms = time_ms(lambda: run_pair("gej_add", t, False), reps=15)
+        b_ms, b_by = msm_bound("gej_add", t)
+        lanes = t["a"][0].shape[1]
+        results["gej_add"][f"{pre}ms_{n}"] = ms
+        if not pre:
+            results["gej_add"].update(ms=ms, lanes=lanes, bound_ms=b_ms,
+                                      bound_by=b_by)
+        emit("timing", name=pre + "gej_add", points=n, lanes=lanes, ms=ms,
+             bound_ms=b_ms, bound_by=b_by)
+    # gej_sum at the tally's sizes (its first operand: the commitments),
+    # 15 timings a point (a launch is ~0.1 ms)
+    for n in sizes:
+        t = sum_sets[n]
+        ms = time_ms(lambda: run_pair("gej_sum", t, False), reps=15)
+        b_ms, b_by = msm_bound("gej_sum", t)
+        b_lat = bound_lat_ms("gej_sum", t, lat)
+        results["gej_sum"].update({f"ms_{n}": ms, f"bound_ms_{n}": b_ms,
+                                   f"bound_lat_ms_{n}": b_lat})
+        if n == sizes[0]:
+            results["gej_sum"].update(ms=ms, lanes=n, bound_ms=b_ms,
+                                      bound_by=b_by, bound_lat_ms=b_lat)
+        emit("timing", name="gej_sum", lanes=n, ms=ms, bound_ms=b_ms,
+             bound_by=b_by, bound_lat_ms=b_lat)
+    results["gej_sum"].update(lat)
+    # the warps an SM holds for the launches of the finish, the lane sum
+    # and the elementwise add
+    for name, warps in (("msm_finish", lib.secp_msm_finish_warps()),
+                        ("gej_sum", lib.secp_gej_warps(1)),
+                        ("gej_add", lib.secp_gej_warps(0))):
+        results[name]["warps_per_sm"] = warps
+        emit("timing", name=name, warps_per_sm=warps)
     # the warps an SM holds for ecmult_glv's and msm_winreduce's launches;
     # both kernels' integer-rate figure beside the bound
-    lib = _build.lib()
     for n in sizes:
         warps = lib.secp_ecmult_glv_warps(n)
         results["ecmult_glv"][f"warps_per_sm_{n}"] = warps

@@ -11,7 +11,7 @@ of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
 ``ops.scalar``          GF(n) instance: ``inv`` (the ``inv_n`` kernel)
 ``ops.group``           point containers (``GE``/``GEJ``), ``gej_add``(``_ge``),
                         ``gej_eq``, ``ge_from_gej``
-``ops.msm``             ``ecmult_multi`` and the ``gej_add`` tree ``_tree_reduce``
+``ops.msm``             ``ecmult_multi`` and the lane sum ``_tree_reduce``
 ``ops.sha256``          SHA-256, HMAC, RFC6979 and BIP-340 tagged hashes
 ``ops.cuda_sha256``     the SHA-256 compression kernel
 ``ops.cuda_field``      mod-p library + ``mulmod_chain``, ``lift_x``,
@@ -19,7 +19,8 @@ of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
 ``ops.cuda_divsteps``   safegcd modular inverse, plain version
 ``ops.cuda_scalar``     mod-n library + the ECDSA *prep*, GLV-split and
                         ``inv_n`` kernels
-``ops.cuda_group``      complete group formulas + GLV Strauss, ``gej_add``
+``ops.cuda_group``      complete group formulas + GLV Strauss, ``gej_add``,
+                        ``gej_sum``
 ``ops.cuda_gen``        fixed-base comb + the sign epilogue kernels
 ``ops.cuda_msm``        the fused windowed-table MSM engine
 ``modules.ecdsa``       batched ECDSA verify, sign, recover
@@ -30,7 +31,7 @@ of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
 ``utils.hostcurve``     Python-int curve for table generation
 ``utils.sha256_host``   host SHA-256 compression for tag midstates
 ``utils.convert``       tables and containers of the JAX package -> port
-``csrc/``               the CUDA C++ sources of the seventeen kernels
+``csrc/``               the CUDA C++ sources of the kernels
 ======================  ====================================================
 
 Importing the package needs no CUDA, no compiler and no Triton: the

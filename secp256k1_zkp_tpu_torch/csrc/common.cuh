@@ -20,11 +20,13 @@
 #define SECP_INLINE __device__ __forceinline__
 #define SECP_NOINLINE static __device__ __noinline__
 #define SECP_LDG(p) __ldg(p)
+#define SECP_LDCG(p) __ldcg(p)
 #else
 #define SECP_DEV static
 #define SECP_INLINE inline
 #define SECP_NOINLINE static
 #define SECP_LDG(p) (*(p))
+#define SECP_LDCG(p) (*(p))
 struct uint4 { uint32_t x, y, z, w; };
 #endif
 
@@ -39,6 +41,19 @@ SECP_INLINE u256 load16(const uint32_t* base, int B, int lane) {
     for (int i = 0; i < 8; ++i) {
         uint32_t lo = base[(size_t)(2 * i) * B + lane];
         uint32_t hi = base[(size_t)(2 * i + 1) * B + lane];
+        r.v[i] = (lo & 0xFFFFu) | (hi << 16);
+    }
+    return r;
+}
+
+// load16 through L2 only (not L1): for words another block of the same
+// launch wrote (gej_sum's last block reads the blocks' partial sums)
+SECP_INLINE u256 load16_cg(const uint32_t* base, int B, int lane) {
+    u256 r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        uint32_t lo = SECP_LDCG(base + (size_t)(2 * i) * B + lane);
+        uint32_t hi = SECP_LDCG(base + (size_t)(2 * i + 1) * B + lane);
         r.v[i] = (lo & 0xFFFFu) | (hi << 16);
     }
     return r;

@@ -47,12 +47,6 @@
 #define SECP_FB_MIN_BLOCKS 3         // at most 170 registers
 
 #ifdef __CUDACC__
-SECP_INLINE void fe_shfl_down_w(fe& r, const fe& a, int s, int width) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-        r.v[i] = __shfl_down_sync(0xFFFFFFFFu, a.v[i], s, width);
-}
-
 // thread g of the launch: lane g / T, team thread g % T; threads past the
 // last lane run lane B - 1 (the tree's shuffles take whole warps) and
 // store nothing
@@ -64,16 +58,9 @@ SECP_INLINE void fixedbase_thread(const uint32_t* gdigs,
     const int g = blockIdx.x * blockDim.x + threadIdx.x;
     const int lane = g / T, t = g & (T - 1);
     if ((g & ~31) / T >= B) return;     // whole warps only
-    jp acc, o;
+    jp acc;
     comb_partial<MODE>(acc, gdigs, table, B, lane < B ? lane : B - 1, t, T);
-#pragma unroll 1
-    for (int s = T >> 1; s > 0; s >>= 1) {
-        fe_shfl_down_w(o.x, acc.x, s, T);
-        fe_shfl_down_w(o.y, acc.y, s, T);
-        fe_shfl_down_w(o.z, acc.z, s, T);
-        o.inf = __shfl_down_sync(0xFFFFFFFFu, acc.inf, s, T);
-        jp_add_to(acc, acc, o);         // threads >= s add what they never use
-    }
+    jp_warp_sum(acc, T);                // the team's tree (group.cuh)
     if (t != 0 || lane >= B) return;
     if (BLINDED) {
         fe bx, by;

@@ -1,4 +1,5 @@
-// Shared pieces of the MSM engine kernels (msm_table, msm_winreduce).
+// Shared pieces of the MSM engine kernels (msm_table, msm_winreduce,
+// msm_finish).
 //
 // The per-point table is lane-major: tab[(lane * 15 + d - 1) * 16 + w]
 // holds the 32-bit words of the TRUE-affine d*P, x in w = 0-7 and y in
@@ -118,4 +119,31 @@ SECP_INLINE void msm_table_lane(const uint32_t* px_in, const uint32_t* py_in,
     }
     msm_entry_store(tab, base, select256(zero, fe_zero(), fe_canon(px)),
                     select256(zero, fe_zero(), fe_canon(py)));
+}
+
+// --- msm_finish's threads (csrc/msm_finish.cu; also run by the host
+// harness) ----------------------------------------------------------------
+
+#define SECP_FIN_THREADS 256         // two threads a window in stage 2
+
+// threads a window in stage 1: the most (a power of two, at most a warp)
+// with team * nwin <= SECP_FIN_THREADS
+SECP_INLINE int finish_team(int nwin) {
+    int team = 1;
+    while (team < 32 && 2 * team * nwin <= SECP_FIN_THREADS) team <<= 1;
+    return team;
+}
+
+// stage 1 for thread t: its share of window t / team's partials
+SECP_INLINE void finish_fold(jp& acc, const uint32_t* px, const uint32_t* py,
+                             const uint32_t* pz, const uint32_t* pinf,
+                             int nwin, int nblk, int t) {
+    const int team = finish_team(nwin);
+    const int w = t / team;
+    if (w >= nwin) {
+        acc = jp_infinity();
+        return;
+    }
+    jp_fold_cols(acc, px, py, pz, pinf, nwin * nblk, w * nblk + t % team,
+                 (w + 1) * nblk, team);
 }

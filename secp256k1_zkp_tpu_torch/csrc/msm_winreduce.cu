@@ -8,10 +8,10 @@
 // each partial (window w, lane chunk c) is one warp's.  Its 32 threads fold
 // strided runs of the chunk's lanes (lo + t, lo + t + 32, ...) into
 // jacobian accumulators in registers with complete mixed adds, then a
-// 5-level warp-shuffle tree of complete jacobian adds leaves the sum in
-// thread 0, which writes it canonical at column w * nblk + c of
-// [16, nwin * nblk].  No shared memory, no block barrier.  msm_finish sums
-// the partials.
+// 5-level warp-shuffle tree of complete jacobian adds (jp_warp_sum of
+// group.cuh) leaves the sum in thread 0, which writes it canonical at
+// column w * nblk + c of [16, nwin * nblk].  No shared memory, no block
+// barrier.  msm_finish sums the partials.
 //
 // Reuse across windows: a block is SECP_WR_WARPS consecutive windows of
 // one chunk, and the grid runs the windows fastest, so the warps that run
@@ -70,22 +70,7 @@ SECP_INLINE void msm_winreduce_fold(jp& acc, const uint32_t* dw,
     }
 }
 
-SECP_INLINE void msm_partial_store(uint32_t* ox, uint32_t* oy, uint32_t* oz,
-                                   uint32_t* oinf, int M, int col,
-                                   const jp& r) {
-    store16(ox, M, col, fe_canon(r.x));
-    store16(oy, M, col, fe_canon(r.y));
-    store16(oz, M, col, fe_canon(r.z));
-    oinf[col] = r.inf;
-}
-
 #ifdef __CUDACC__
-SECP_INLINE void fe_shfl_down(fe& r, const fe& a, int s) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-        r.v[i] = __shfl_down_sync(0xFFFFFFFFu, a.v[i], s);
-}
-
 __global__ void __launch_bounds__(SECP_WR_WARPS * 32, SECP_WR_MIN_BLOCKS)
 msm_winreduce_kernel(const uint32_t* digs, const uint32_t* tab,
                      const uint32_t* pinf, uint32_t* ox, uint32_t* oy,
@@ -97,18 +82,11 @@ msm_winreduce_kernel(const uint32_t* digs, const uint32_t* tab,
     if (w >= nwin) return;              // whole warps only
     const int lo = c * chunk;
     const int hi = min(N, lo + chunk);
-    jp acc, o;
+    jp acc;
     msm_winreduce_fold(acc, digs + (size_t)w * N, tab, pinf, lo + t, hi);
-#pragma unroll 1
-    for (int s = 16; s > 0; s >>= 1) {
-        fe_shfl_down(o.x, acc.x, s);
-        fe_shfl_down(o.y, acc.y, s);
-        fe_shfl_down(o.z, acc.z, s);
-        o.inf = __shfl_down_sync(0xFFFFFFFFu, acc.inf, s);
-        jp_add_to(acc, acc, o);         // lanes >= s add what they never use
-    }
-    if (t == 0) msm_partial_store(ox, oy, oz, oinf, nwin * nblk, w * nblk + c,
-                                  acc);
+    jp_warp_sum(acc, 32);
+    if (t == 0) jp_store_col(ox, oy, oz, oinf, nwin * nblk, w * nblk + c,
+                             acc);
 }
 
 extern "C" int secp_msm_winreduce(const uint32_t* digs, const uint32_t* tab,

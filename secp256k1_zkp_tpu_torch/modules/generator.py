@@ -307,5 +307,6 @@ def pedersen_blind_generator_blind_sum(values_hi, values_lo,
 def pedersen_verify_tally(pos: GEJ, neg: GEJ):
     """True iff the sum of the ``pos`` commitments equals the sum of the
     ``neg`` ones (pedersen_verify_tally, main_impl.h:364): a 0-d bool.
-    Each sum is a tree of ``gej_add`` launches (``msm._tree_reduce``)."""
+    Each sum is one ``gej_sum`` launch whatever the count
+    (``msm._tree_reduce``)."""
     return G.gej_eq(msm._tree_reduce(pos), msm._tree_reduce(neg))

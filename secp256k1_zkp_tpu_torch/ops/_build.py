@@ -51,11 +51,15 @@ _SIGNATURES = {
     "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
     "secp_gej_add": [_VP] * 12 + [_INT, _VP],
+    "secp_gej_sum": [_VP] * 9 + [_INT, _INT, _VP],
+    "secp_gej_warps": [_INT],
     "secp_msm_table": [_VP] * 5 + [_INT, _VP],
     "secp_msm_table_warps": [],
     "secp_msm_winreduce": [_VP] * 7 + [_INT] * 4 + [_VP],
     "secp_msm_winreduce_warps": [],
-    "secp_msm_finish": [_VP] * 8 + [_INT] * 3 + [_VP],
+    "secp_msm_finish": [_VP] * 8 + [_INT] * 2 + [_VP],
+    "secp_msm_finish_warps": [],
+    "secp_latency_probe": [_VP, _INT, _INT, _VP],
     "secp_affine_meta": [_VP] * 6 + [_INT, _VP],
     "secp_inv_n": [_VP, _VP, _INT, _VP],
 }
@@ -68,7 +72,7 @@ LAUNCH_COUNTS: dict[str, int] = {
     "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
     "fixedbase_blinded": 0, "gej_add": 0, "msm_table": 0,
     "msm_winreduce": 0, "msm_finish": 0, "affine_meta": 0, "inv_n": 0,
-    "fixedbase_public": 0}
+    "fixedbase_public": 0, "gej_sum": 0}
 
 
 def count_launch(name: str) -> None:

@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``ops/pallas_group.py``: ``FE`` with a
 static limb bound, ``jp_double``, ``jp_add_aff``, ``jp_add``,
 ``add_aff_ratio`` as plain PyTorch on limb-major ``[16, B]`` int64 rows,
 ``affine_multiples`` (the true-affine d*P table build that ``ecmult_glv``
-and the MSM engine share), and two kernels: ``ecmult_glv`` beside
-``ecmult_glv_ref`` and ``gej_add`` beside ``gej_add_ref``.
+and the MSM engine share), the trees of complete adds that the kernels
+run (``tree_sum``, ``block_sum_ref``), and three kernels: ``ecmult_glv``
+beside ``ecmult_glv_ref``, ``gej_add`` beside ``gej_add_ref`` and
+``gej_sum`` beside ``gej_sum_ref``.
 
 The formulas are the reference's line for line, so every coordinate is the
 same residue mod p as the JAX kernel's.  Weak representatives may differ
@@ -392,9 +394,117 @@ def ecmult_glv(digs, flags, px, py, pinf, gjac, rx=None):
 
 
 # ---------------------------------------------------------------------------
-# gej_add: the batched complete jacobian add (the MSM engine's collapse and
-# batch verify's rhs add).
+# gej_add: the batched complete jacobian add (the generator's two adds and
+# batch verify's rhs add); gej_sum: the sum of a batch of points (the
+# Pedersen tally), and the trees of complete adds the kernels share.
 # ---------------------------------------------------------------------------
+
+SUM_THREADS = 256         # gej_sum's threads a block (csrc/gej_add.cu)
+WARP = 32
+
+
+def jp_pad(p: JP, lanes: int) -> JP:
+    """``p`` with infinity lanes (0, 1, 1, as the kernels' jp_infinity)
+    appended up to ``lanes``."""
+    extra = lanes - p.inf.shape[0]
+    if extra <= 0:
+        return p
+    q = jp_inf(p.inf.new_empty((extra,)))
+
+    def cat(a: FE, b: FE) -> FE:
+        return FE(torch.cat([a.l, b.l], 1), max(a.bound, b.bound))
+
+    return JP(cat(p.x, q.x), cat(p.y, q.y), cat(p.z, q.z),
+              torch.cat([p.inf, q.inf]))
+
+
+def tree_sum(p: JP, width: int) -> JP:
+    """Sum each run of ``width`` consecutive lanes (a power of two) by
+    halving levels of complete adds -> one lane per run: at each level
+    lane t of a run adds lane t + width / 2, as the kernels' shuffle trees
+    (``jp_warp_sum``, ``csrc/group.cuh``) leave the run's first thread."""
+    while width > 1:
+        h = width // 2
+
+        def half(t, lo):
+            v = t.reshape(*t.shape[:-1], -1, width)[..., lo:lo + h]
+            return v.reshape(*t.shape[:-1], -1)
+
+        a = JP(*(FE(half(c.l, 0), c.bound) for c in (p.x, p.y, p.z)),
+               half(p.inf, 0))
+        b = JP(*(FE(half(c.l, h), c.bound) for c in (p.x, p.y, p.z)),
+               half(p.inf, h))
+        p = jp_add(a, b)
+        width = h
+    return p
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def block_sum_ref(p: JP) -> JP:
+    """The sum of all n lanes of ``p`` in the order of ``jp_block_sum``
+    (``csrc/group.cuh``) with lane t as thread t: each warp's tree over
+    pow2_ceil(min(n, 32)) threads, then one over the warps' sums."""
+    n = p.inf.shape[0]
+    if n <= WARP:
+        return tree_sum(jp_pad(p, _pow2_ceil(n)), _pow2_ceil(n))
+    warps = -(-n // WARP)
+    s = tree_sum(jp_pad(p, warps * WARP), WARP)
+    return tree_sum(jp_pad(s, _pow2_ceil(warps)), _pow2_ceil(warps))
+
+
+def sum_blocks(lanes: int, sms: int) -> int:
+    """Blocks of :func:`gej_sum`'s launch: one an SM at most, and no
+    block without a lane of its own."""
+    return max(1, min(-(-lanes // SUM_THREADS), sms))
+
+
+def gej_sum_ref(x, y, z, inf):
+    """Plain version of :func:`gej_sum` (any device): the lanes, padded
+    with infinity to a power of two, summed by halving levels of complete
+    adds.  Another order of additions than the kernel's, so the two agree
+    as points."""
+    p = _jp_rows((x, y, z, inf))
+    width = _pow2_ceil(p.inf.shape[0])
+    out = tree_sum(jp_pad(p, width), width)
+    return _canon32(out.x), _canon32(out.y), _canon32(out.z), out.inf
+
+
+def gej_sum(x, y, z, inf):
+    """The sum of B >= 1 jacobian points (x, y, z ``[16, B]`` int32
+    limbs, inf ``[B]`` bool; any B, infinite lanes allowed) as one point.
+
+    Returns (x, y, z ``[16, 1]`` int32 canonical, inf ``[1]`` bool).  CUDA
+    tensors go through the hand-written kernel (``csrc/gej_add.cu``: one
+    launch for any B; its blocks' sums meet in the last block to finish),
+    CPU tensors through the plain version."""
+    if not x.is_cuda:
+        return gej_sum_ref(x, y, z, inf)
+    lanes = _build.check_rows(x, LIMBS, "gej_sum x")
+    _build.check_rows(y, LIMBS, "gej_sum y", lanes)
+    _build.check_rows(z, LIMBS, "gej_sum z", lanes)
+    if not inf.is_cuda or inf.shape != (lanes,):
+        raise ValueError("gej_sum inf: expected a CUDA [B] mask")
+    i32 = torch.int32
+    inf32 = inf.to(i32).contiguous()
+    blocks = sum_blocks(lanes, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    # the blocks' sums and the counter: dies with this call while the
+    # kernel may still run, safe in stream order
+    part = torch.empty((49 * blocks + 1,), dtype=i32, device=x.device)
+    ox = torch.empty((LIMBS, 1), dtype=i32, device=x.device)
+    oy = torch.empty_like(ox)
+    oz = torch.empty_like(ox)
+    oinf = torch.empty((1,), dtype=i32, device=x.device)
+    lib = _build.lib()
+    _build.count_launch("gej_sum")
+    _build.check(lib.secp_gej_sum(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), inf32.data_ptr(),
+        ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
+        part.data_ptr(), lanes, blocks, _build.stream_ptr()), "gej_sum")
+    return ox, oy, oz, oinf != 0
 
 
 def _jp_rows(a) -> JP:

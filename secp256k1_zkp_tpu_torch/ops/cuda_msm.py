@@ -2,11 +2,12 @@
 
 Counterpart of the JAX package's ``ops/pallas_msm.py``: per-point
 true-affine tables d*P, d = 1..15 (``msm_table``), 4-bit windows reduced
-to per-window partial sums (``msm_winreduce``), the Horner recurrence
-R = 16*R + S_w on a few lanes (``msm_finish``), and the collapse of those
-lanes by the ``gej_add`` kernel; ``msm_windowed`` chains them, as
-``msm_windowed_tpu`` does.  Each kernel wrapper sits beside its plain
-PyTorch version; the device of the tensors decides which runs.
+to per-window partial sums (``msm_winreduce``), and sum_w 16^w * S_w of
+those partials as one point (``msm_finish``; on the TPU the Horner
+recurrence on 128 lanes and their collapse by the add kernel);
+``msm_windowed`` chains them, as ``msm_windowed_tpu`` does.  Each kernel
+wrapper sits beside its plain PyTorch version; the device of the tensors
+decides which runs.
 
 Layouts: points are limb-major ``[16, N]`` int32 limbs with ``[N]`` bool
 infinity masks, as every kernel of the port takes them; digits are
@@ -15,7 +16,7 @@ the table is lane-major ``[N, 15, 16]`` int32 — entry d - 1 of lane i
 holds the 32-bit words of the canonical affine d*P_i, x in 0-7 and y in
 8-15 (``csrc/msm.cuh``), so a lane's digit names one 64-byte entry.
 
-The window partials and the finish lanes are jacobian: their
+The window partials and the finish's result are jacobian: their
 representation depends on the order of the additions, so the kernels and
 the plain versions are compared as points (:func:`points_affine`).
 """
@@ -31,8 +32,8 @@ from .cuda_divsteps import inv_limbs16
 from .cuda_field import LIMBS, MASK16, P_PRIME, canon_p, mul_limbs, sqr_limbs
 from .cuda_gen import pack_words
 from .cuda_group import (FE, JP, _canon32, _rows_fe, affine_multiples,
-                         fe_const, fe_select, fe_weak, gej_add, jp_add,
-                         jp_double, jp_inf)
+                         block_sum_ref, fe_const, fe_select, fe_weak,
+                         jp_add, jp_double, jp_inf, tree_sum)
 from .group import GE, GEJ
 from .limb import LB, from_rows, kernel_rows
 from ..utils import hostcurve
@@ -43,7 +44,8 @@ WR_THREADS = 32           # threads of one (window, chunk) partial: a warp
 WR_PARTIALS = 1056        # msm_winreduce partials (one warp each) at most:
                           # two blocks of 4 warps on each of an H100's 132
                           # SMs (chip_smoke.py sweeps nblk)
-FINISH_LANES = 128        # Horner lanes of msm_finish, collapsed by gej_add
+FINISH_THREADS = 256      # msm_finish's one block (csrc/msm_finish.cu)
+FINISH_WINDOWS = FINISH_THREADS // 2    # two threads a window's ladder
 I32 = torch.int32
 I64 = torch.int64
 
@@ -129,25 +131,6 @@ def winreduce_blocks(lanes: int, nwin: int) -> int:
     return -(-lanes // chunk)               # no empty chunk
 
 
-def _tree_sum(p: JP, width: int) -> JP:
-    """Sum each run of ``width`` consecutive lanes (a power of two) by
-    halving levels of complete adds -> one lane per run."""
-    while width > 1:
-        h = width // 2
-
-        def half(t, lo):
-            v = t.reshape(*t.shape[:-1], -1, width)[..., lo:lo + h]
-            return v.reshape(*t.shape[:-1], -1)
-
-        a = JP(*(FE(half(c.l, 0), c.bound) for c in (p.x, p.y, p.z)),
-               half(p.inf, 0))
-        b = JP(*(FE(half(c.l, h), c.bound) for c in (p.x, p.y, p.z)),
-               half(p.inf, h))
-        p = jp_add(a, b)
-        width = h
-    return p
-
-
 def msm_winreduce_ref(digs, tab, pinf, nblk: int):
     """Plain version of :func:`msm_winreduce` (any device).  Each chunk's
     lanes are summed by a tree of complete adds, a few windows at a time
@@ -180,7 +163,7 @@ def msm_winreduce_ref(digs, tab, pinf, nblk: int):
         one[0] = 1
         p = JP(FE(xs, MASK16), FE(lay(y.permute(2, 0, 1), 0), MASK16),
                FE(one, MASK16), lay(inf.to(I64), 1) != 0)
-        outs.append(_tree_sum(p, width))
+        outs.append(tree_sum(p, width))
     return (torch.cat([_canon32(o.x) for o in outs], 1),
             torch.cat([_canon32(o.y) for o in outs], 1),
             torch.cat([_canon32(o.z) for o in outs], 1),
@@ -227,51 +210,78 @@ def msm_winreduce(digs, tab, pinf, nblk: int):
 
 
 # ---------------------------------------------------------------------------
-# msm_finish, the collapse, and the engine
+# msm_finish and the engine
 # ---------------------------------------------------------------------------
 
 
+def finish_team(nwin: int) -> int:
+    """Threads a window in msm_finish's first stage: the most (a power of
+    two, at most a warp) with team * nwin <= FINISH_THREADS."""
+    team = 1
+    while team < 32 and 2 * team * nwin <= FINISH_THREADS:
+        team *= 2
+    return team
+
+
 def msm_finish_ref(x, y, z, inf, nwin: int):
-    """Plain version of :func:`msm_finish` (any device): the kernel's
-    recurrence in the kernel's order, on all lanes at once."""
-    lanes = FINISH_LANES
+    """Plain version of :func:`msm_finish` (any device), in the kernel's
+    order: each window's team of threads folds its partials and sums them
+    by a shuffle tree (S_w), S_w is doubled 4w times (the kernel's pair of
+    threads gives the same residues), and the block's tree adds the nwin
+    terms."""
     nblk = x.shape[1] // nwin
-    steps = -(-nblk // lanes)
-    pad = steps * lanes - nblk
+    team = finish_team(nwin)
+    steps = -(-nblk // team)
 
     def lay(t, fill):
-        # [..., nwin * nblk] -> [..., nwin, steps, lanes]: partial j of a
-        # window goes to lane j % lanes at step j // lanes
-        t = t.reshape(*t.shape[:-1], nwin, nblk)
-        t = tnf.pad(t, (0, pad), value=fill)
-        return t.reshape(*t.shape[:-1], steps, lanes)
+        # [..., nwin * nblk] -> [..., steps, nwin * team]: partial
+        # r + k * team of window w is thread w * team + r's k-th
+        lead = t.shape[:-1]
+        t = tnf.pad(t.reshape(*lead, nwin, nblk), (0, steps * team - nblk),
+                    value=fill)
+        t = t.reshape(*lead, nwin, steps, team).transpose(-2, -3)
+        return t.reshape(*lead, steps, nwin * team)
 
     px, py, pz = (lay(t.to(I64), 0) for t in (x, y, z))
     pinf = lay(inf.to(I64), 1) != 0
-    # a lane past the last partial of a step adds nothing in the kernel
+    # a thread past its window's last partial adds nothing more; one with
+    # none at all holds infinity
     real = lay(torch.ones_like(inf, dtype=I64), 0) != 0
-    r = jp_inf(px[0, 0, 0])
-    for w in range(nwin - 1, -1, -1):
-        for _ in range(4):
-            r = jp_double(r)
-        for j in range(steps):
-            s = jp_add(r, JP(FE(px[:, w, j], MASK16), FE(py[:, w, j], MASK16),
-                             FE(pz[:, w, j], MASK16), pinf[w, j]))
-            m = real[w, j]
-            r = JP(fe_select(m, s.x, r.x), fe_select(m, s.y, r.y),
-                   fe_select(m, s.z, r.z), torch.where(m, s.inf, r.inf))
-    return _canon32(r.x), _canon32(r.y), _canon32(r.z), r.inf
+
+    def col(k):
+        return JP(FE(px[:, k], MASK16), FE(py[:, k], MASK16),
+                  FE(pz[:, k], MASK16), pinf[k])
+
+    def where(m, a, b):
+        return JP(fe_select(m, a.x, b.x), fe_select(m, a.y, b.y),
+                  fe_select(m, a.z, b.z), torch.where(m, a.inf, b.inf))
+
+    acc = where(real[0], col(0), jp_inf(px[0, 0]))
+    for k in range(1, steps):
+        acc = where(real[k], jp_add(acc, col(k)), acc)
+    acc = tree_sum(acc, team)                   # S_w, [nwin] lanes
+    w = torch.arange(nwin, device=x.device)
+    for k in range(4 * (nwin - 1)):
+        acc = where(k < 4 * w, jp_double(acc), acc)
+    out = block_sum_ref(acc)
+    return _canon32(out.x), _canon32(out.y), _canon32(out.z), out.inf
 
 
 def msm_finish(x, y, z, inf, nwin: int):
     """The window partials of :func:`msm_winreduce` (``[16, nwin * nblk]``
-    int32, inf ``[nwin * nblk]`` bool) -> FINISH_LANES jacobian lanes whose
-    sum is sum_w 16^w * S_w: lane l runs R = 16*R + (partials l,
-    l + FINISH_LANES, ... of window w), most significant window first.
+    int32, inf ``[nwin * nblk]`` bool; 1 <= nwin <= FINISH_WINDOWS) ->
+    sum_w 16^w * S_w, S_w the sum of window w's nblk partials: the MSM's
+    result.
 
-    Returns (x, y, z ``[16, FINISH_LANES]`` int32 canonical, inf
-    ``[FINISH_LANES]`` bool).  CUDA tensors go through the hand-written kernel
-    (``csrc/msm_finish.cu``); CPU tensors through the plain version."""
+    Returns (x, y, z ``[16, 1]`` int32 canonical, inf ``[1]`` bool).  CUDA
+    tensors go through the hand-written kernel (``csrc/msm_finish.cu``, one
+    block, one launch); CPU tensors through the plain version."""
+    if not 1 <= nwin <= FINISH_WINDOWS:
+        raise ValueError(f"msm_finish: nwin must be 1..{FINISH_WINDOWS}, "
+                         f"not {nwin}")
+    if x.shape[-1] % nwin or x.shape[-1] == 0:
+        raise ValueError(f"msm_finish: {x.shape[-1]} partials for {nwin} "
+                         "windows")
     if not x.is_cuda:
         return msm_finish_ref(x, y, z, inf, nwin)
     cols = _build.check_rows(x, LIMBS, "msm_finish x")
@@ -279,37 +289,18 @@ def msm_finish(x, y, z, inf, nwin: int):
     _build.check_rows(z, LIMBS, "msm_finish z", cols)
     if not inf.is_cuda or inf.shape != (cols,):
         raise ValueError("msm_finish inf: expected a CUDA mask")
-    if cols % nwin:
-        raise ValueError(f"msm_finish: {cols} partials for {nwin} windows")
-    lanes = FINISH_LANES
     inf32 = inf.to(I32).contiguous()
-    ox = torch.empty((LIMBS, lanes), dtype=I32, device=x.device)
+    ox = torch.empty((LIMBS, 1), dtype=I32, device=x.device)
     oy = torch.empty_like(ox)
     oz = torch.empty_like(ox)
-    oinf = torch.empty((lanes,), dtype=I32, device=x.device)
+    oinf = torch.empty((1,), dtype=I32, device=x.device)
     lib = _build.lib()
     _build.count_launch("msm_finish")
     _build.check(lib.secp_msm_finish(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), inf32.data_ptr(),
         ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(), nwin,
-        cols // nwin, lanes, _build.stream_ptr()), "msm_finish")
+        cols // nwin, _build.stream_ptr()), "msm_finish")
     return ox, oy, oz, oinf != 0
-
-
-def collapse(x, y, z, inf):
-    """Sum the lanes of a jacobian point set (a power of two of them) to
-    one, by halving levels of :func:`cuda_group.gej_add` — one launch a
-    level on a card, as ``_collapse128`` does.  Returns ``[16, 1]`` rows
-    and a ``[1]`` mask."""
-    width = x.shape[1]
-    assert width & (width - 1) == 0, width
-    cur = (x, y, z, inf)
-    while width > 1:
-        h = width // 2
-        cur = gej_add(tuple(t[..., :h].contiguous() for t in cur),
-                      tuple(t[..., h:].contiguous() for t in cur))
-        width = h
-    return cur
 
 
 def points_affine(x, y, z, inf, groups: int):
@@ -327,7 +318,7 @@ def points_affine(x, y, z, inf, groups: int):
         return tnf.pad(t, (0, width - per), value=fill) \
             .reshape(*t.shape[:-2], -1)
 
-    p = _tree_sum(JP(*(FE(lay(t.to(I64), 0), MASK16) for t in (x, y, z)),
+    p = tree_sum(JP(*(FE(lay(t.to(I64), 0), MASK16) for t in (x, y, z)),
                      lay(inf.to(I64), 1) != 0), width)
     zinv = inv_limbs16(canon_p(fe_weak(p.z).l), P_PRIME)
     zi2 = sqr_limbs(zinv)
@@ -349,9 +340,9 @@ def msm_windowed(ks: LB, pts: GE, nbits: int = 256) -> GEJ:
     the port refuses both instead.  Its kernels mask the ragged edge, so
     nothing is padded.
 
-    msm_table -> msm_winreduce -> msm_finish -> log2(FINISH_LANES) levels
-    of gej_add: on CUDA tensors the hand-written kernels, on CPU tensors
-    their plain versions."""
+    msm_table -> msm_winreduce -> msm_finish, three launches: on CUDA
+    tensors the hand-written kernels, on CPU tensors their plain
+    versions."""
     if nbits not in (128, 256):
         raise ValueError(f"msm_windowed: nbits must be 128 or 256, not "
                          f"{nbits}")
@@ -367,5 +358,5 @@ def msm_windowed(ks: LB, pts: GE, nbits: int = 256) -> GEJ:
     tab = msm_table(kernel_rows(F.norm_weak(pts.x)),
                     kernel_rows(F.norm_weak(pts.y)), pinf)
     parts = msm_winreduce(digs, tab, pinf, winreduce_blocks(lanes, nwin))
-    x, y, z, inf = collapse(*msm_finish(*parts, nwin))
+    x, y, z, inf = msm_finish(*parts, nwin)
     return GEJ(*(from_rows(t, ()) for t in (x, y, z)), inf[0])

@@ -11,10 +11,16 @@ Python integers.
 * ``msm_winreduce`` (B13): the window sums against Python integers, and
   against the JAX ``_winreduce_kernel`` body for one window of two blocks
   (``pl.program_id`` and ``pl.when`` stood in for by ``monkeypatch``);
-  ``msm_finish`` (B14) with the collapse through ``msm_windowed`` and
+  ``msm_finish`` (B14, one point) through ``msm_windowed`` and
   ``ops.msm.ecmult_multi`` against the analytic oracle P_i = a_i*G at
   nbits 128 and 256, on 13 lanes (no multiple of a block) with an
-  infinite lane, k = 0, repeated points and a P, -P pair.
+  infinite lane, k = 0, repeated points and a P, -P pair; its plain
+  version on its own against sum_w 16^w S_w in Python ints (32 windows
+  of 3 partials, an infinite partial and a window that cancels; all
+  partials infinite).  ``gej_sum``'s plain version (the lane sum of the
+  tally) against Python ints and the JAX ``ops/msm._tree_reduce``
+  (``jax.disable_jit()``) on 13 lanes with an infinite lane and a P, -P
+  pair, and ``msm._tree_reduce`` through it.
 * ``_batch_digest`` and ``_batch_randomizers`` against the JAX functions
   and ``hashlib`` for n = 1, 3 and 8; ``batch_verify`` against
   ``oracle.schnorr_verify`` lane by lane: valid batches of 3 and 1, the
@@ -22,8 +28,8 @@ Python integers.
   s byte (the valid batches reach the comb's public gather entry alone,
   for the sum of z*s); a flipped message byte, a key x off the curve and r >= p are
   checked broken by the oracle here and rejected by the port in the
-  ``slow`` item (a CPU ``batch_verify`` takes about 14 s, most of it the
-  plain ``msm_finish``'s 384 doublings in sequence).
+  ``slow`` item (a CPU ``batch_verify`` takes seconds, most of it the
+  plain ``msm_finish``'s 376 doublings in sequence).
 
 Tolerance: 0 (limbs, integers, points, booleans).  Jacobian results of the
 engine depend on the order of the additions and are compared as points.
@@ -42,8 +48,11 @@ import torch
 
 import oracle
 from secp256k1_zkp_tpu.modules import schnorrsig as jschnorr
+from secp256k1_zkp_tpu.ops import group as JGRP
+from secp256k1_zkp_tpu.ops import msm as JMSMOPS
 from secp256k1_zkp_tpu.ops import pallas_group as JPG
 from secp256k1_zkp_tpu.ops import pallas_msm as JMSM
+from secp256k1_zkp_tpu.ops.limb import LB as JLB
 from secp256k1_zkp_tpu_torch.modules import schnorrsig
 from secp256k1_zkp_tpu_torch.ops import _build, msm
 from secp256k1_zkp_tpu_torch.ops import cuda_group as TG
@@ -231,7 +240,7 @@ def _msm_engine_vs_ints_and_jax_winreduce(monkeypatch):
     assert [ints(jsum[0]), ints(jsum[1]), jsum[2].tolist()] == \
         [ints(ax[:, w:w + 1]), ints(ay[:, w:w + 1]), [bool(winf[w])]]
 
-    # B14 and the collapse (B11) through msm_windowed / ecmult_multi
+    # B14 through msm_windowed / ecmult_multi
     for nbits in (128, 256):
         k, pts, want = _msm_lanes(rng, 13, nbits)
         if nbits == 128:
@@ -250,6 +259,61 @@ def _msm_engine_vs_ints_and_jax_winreduce(monkeypatch):
     with pytest.raises(NotImplementedError):
         msm.ecmult_multi(LB(torch.zeros((2, 3, 16), dtype=torch.int64),
                             0xFFFF), _ge(pts), device="cpu")
+    assert _build.LAUNCH_COUNTS == before
+
+
+def _jac_rows(rng, pts):
+    """Affine points (None = infinity) -> int32 x, y, z ``[16, B]`` of
+    jacobian representatives with random Z, and the ``[B]`` flags."""
+    zs = rand(rng, P - 1, len(pts))
+    cols = [(0, 1, 1) if p is None else _jac(p, z + 1)
+            for p, z in zip(pts, zs)]
+    return tuple(trows32([c[k] for c in cols]) for k in range(3)) \
+        + (torch.tensor([p is None for p in pts]),)
+
+
+def _finish_and_lane_sum_vs_ints_and_jax():
+    rng = np.random.default_rng(85)
+    before = dict(_build.LAUNCH_COUNTS)
+    # B14's plain version (the kernel's order) on 32 windows of 3
+    # partials: an infinite partial, window 4 = P + (-P) + infinity
+    nwin, nblk = 32, 3
+    pts = [hc.mul(k) for k in rand(rng, N, nwin * nblk)]
+    pts[10] = None
+    pts[12:15] = [pts[0], hc.neg(pts[0]), None]
+    want = None
+    for w in reversed(range(nwin)):
+        for _ in range(4):
+            want = hc.add(want, want)
+        for p in pts[w * nblk:(w + 1) * nblk]:
+            want = hc.add(want, p)
+    for parts, expect in ((pts, want), ([None] * len(pts), None)):
+        out = TM.msm_finish_ref(*_jac_rows(rng, parts), nwin)
+        assert out[0].shape == (16, 1) and out[3].shape == (1,)
+        assert _affine(*(ints(c)[0] for c in out[:3]), bool(out[3][0])) \
+            == expect
+    # gej_sum's plain version, the JAX _tree_reduce and the port's
+    # _tree_reduce on 13 lanes: lane 5 infinite, lanes 8 and 9 P and -P
+    pts = [hc.mul(k) for k in rand(rng, N, 13)]
+    pts[5] = None
+    pts[9] = hc.neg(pts[8])
+    want = None
+    for p in pts:
+        want = hc.add(want, p)
+    x, y, z, inf = _jac_rows(rng, pts)
+    out = TG.gej_sum_ref(x, y, z, inf)
+    assert out[0].shape == (16, 1) and out[3].shape == (1,)
+    assert _affine(*(ints(c)[0] for c in out[:3]), bool(out[3][0])) == want
+    jgej = JGRP.GEJ(*(JLB(jnp.asarray(c.numpy().T.astype(np.uint32)), 0xFFFF)
+                      for c in (x, y, z)), jnp.asarray(inf.numpy()))
+    with jax.disable_jit():
+        jr = JMSMOPS._tree_reduce(jgej)
+    jint = [sum(int(v) << (16 * i) for i, v in enumerate(
+        np.asarray(c.v).tolist())) % P for c in (jr.x, jr.y, jr.z)]
+    assert _affine(*jint, bool(jr.inf)) == want
+    port = msm._tree_reduce(TGRP.GEJ(*(LB(c.T.to(torch.int64), 0xFFFF)
+                                       for c in (x, y, z)), inf))
+    assert port.x.v.shape == (16,) and _gej_int(port) == want
     assert _build.LAUNCH_COUNTS == before
 
 
@@ -422,6 +486,7 @@ def test_msm_engine_and_batch_verify(monkeypatch):
     ROADMAP, "Tests must be reached")."""
     _gej_add_and_msm_table_vs_jax_and_ints()
     _msm_engine_vs_ints_and_jax_winreduce(monkeypatch)
+    _finish_and_lane_sum_vs_ints_and_jax()
     _batch_randomizers_and_valid_batches_vs_jax_and_oracle()
     _batch_verify_rejects_a_corruption()
 

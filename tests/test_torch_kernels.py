@@ -279,6 +279,8 @@ def _b0_harness(tmp_path):
     lib.b0_jp.argtypes = [i32, vp, vp, vp, i32]
     lib.b0_comb.argtypes = [vp, vp, i32, i32, i32, vp]
     lib.b0_msm_table.argtypes = [vp, vp, vp, i32, vp, vp]
+    lib.b0_msm_finish.argtypes = [vp, vp, vp, vp, i32, i32, vp]
+    lib.b0_gej_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
     return lib
 
 
@@ -347,7 +349,8 @@ def _check_b0_group(lib):
     """jp_double / jp_add_aff / jp_add of the portable branch: the points
     against hostcurve, every coordinate (canonical) against the plain
     PyTorch formulas of ops/cuda_group.py, on generic sums, P + P,
-    P + (-P) and infinity operands."""
+    P + (-P) and infinity operands; the pair doubling's two threads
+    (jp_double_half, jp_double_join) against jp_double's residues."""
     rng = np.random.default_rng(11)
     ks = rand(rng, N, 12)
     A = [hc.mul(k) for k in ks]
@@ -406,6 +409,12 @@ def _check_b0_group(lib):
         assert [aff(g) for g in got] == want, op
         canon = [(x % P, y % P, z % P, inf) for x, y, z, inf in got]
         assert canon == plain(op, a_pts, bs), op
+        if op == 0:
+            # the pair doubling: both threads' results, the same residues
+            for half in (3, 4):
+                pair = _b0_jp(lib, half, a_pts, a_pts)
+                assert [(x % P, y % P, z % P, inf)
+                        for x, y, z, inf in pair] == canon, half
 
 
 def _check_b0_comb(lib):
@@ -474,20 +483,126 @@ def _check_b0_msm_table(lib):
     assert not tab[6].any()
 
 
+def _jac_lanes(rng, pts):
+    """Affine points (None = infinity) -> limb-major x, y, z [16, B] uint32
+    of jacobian representatives with random Z, and the flags."""
+    zs = [z or 1 for z in rand(rng, P, len(pts))]
+    cols = [(0, 1, 1) if p is None else
+            (p[0] * z * z % P, p[1] * pow(z, 3, P) % P, z)
+            for p, z in zip(pts, zs)]
+    x, y, z = (np.ascontiguousarray(rows_np([c[k] for c in cols]))
+               for k in range(3))
+    return x, y, z, np.array([p is None for p in pts], np.uint32)
+
+
+def _run_of(rng, n):
+    """n points P, P + Q, P + 2Q, ... (one host add each)."""
+    p, q = hc.mul(rand(rng, N, 1)[0]), hc.mul(rand(rng, N, 1)[0])
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = hc.add(p, q)
+    return out
+
+
+def _b0_point(out):
+    """The harness's 25 result words -> affine ints or None."""
+    if out[24]:
+        return None
+    x, y, z = (_from_words(out[8 * c:8 * c + 8].reshape(1, 8))[0]
+               for c in range(3))
+    zi = pow(z, -1, P)
+    return x * zi * zi % P, y * zi ** 3 % P
+
+
+def _check_b0_msm_finish(lib):
+    """msm_finish.cu's block (csrc/msm.cuh's finish_fold and
+    finish_ladder, group.cuh's trees written out in the harness) against
+    sum_w 16^w S_w by hostcurve on 64 and 32 windows of 16, 33 and 1
+    partials, on all-infinite partials, and with a window whose partials
+    cancel (P, -P) and one where a thread's fold meets P + P; its words
+    against the plain version's (which runs the kernel's order) on two
+    of the sets."""
+    rng = np.random.default_rng(14)
+    sets = []
+    for nwin, nblk in ((64, 16), (32, 33), (64, 1), (32, 1)):
+        pts = _run_of(rng, nwin * nblk)
+        pts = [None if i % 9 == 4 else p for i, p in enumerate(pts)]
+        sets.append((nwin, nblk, pts))
+    pts = list(sets[1][2])
+    team = TM.finish_team(32)
+    # window 5: P and -P and nothing else; window 7: P + P in one fold
+    pts[5 * 33:6 * 33] = [pts[0], hc.neg(pts[0])] + [None] * 31
+    pts[7 * 33 + team] = pts[7 * 33] = pts[1]
+    sets.append((32, 33, pts))
+    sets.append((64, 16, [None] * (64 * 16)))
+    for k, (nwin, nblk, pts) in enumerate(sets):
+        x, y, z, inf = _jac_lanes(rng, pts)
+        out = np.zeros(25, np.uint32)
+        lib.b0_msm_finish(x.ctypes.data, y.ctypes.data, z.ctypes.data,
+                          inf.ctypes.data, nwin, nblk, out.ctypes.data)
+        want = None
+        for w in reversed(range(nwin)):
+            for _ in range(4):
+                want = hc.add(want, want)
+            for p in pts[w * nblk:(w + 1) * nblk]:
+                want = hc.add(want, p)
+        assert _b0_point(out) == want, (nwin, nblk, k)
+        if k in (2, 4):
+            ref = TM.msm_finish_ref(*(torch.from_numpy(a.astype(np.int32))
+                                      for a in (x, y, z)),
+                                    torch.from_numpy(inf != 0), nwin)
+            words = [ints(c)[0] for c in ref[:3]] + [int(ref[3][0])]
+            assert words == _from_words(out[:24].reshape(3, 8)) \
+                + [int(out[24])], k
+
+
+def _check_b0_gej_sum(lib):
+    """gej_add.cu's gej_sum (group.cuh's fold and trees, the blocks'
+    sums through the scratch and the last block's sum, written out in the
+    harness) against hostcurve on B = 1, 2, 3, 65 and 1,000 lanes with
+    infinite lanes, a P + P pair and a cancelling pair, in the blocks the
+    wrapper picks (cuda_group.sum_blocks) on 132, 2 and 1 SMs: 4, 2 and 1
+    blocks at 1,000 lanes, one lane or more a thread."""
+    rng = np.random.default_rng(15)
+    run = _run_of(rng, 1000)
+    p, q = run[0], run[1]
+    cases = [[p], [None], [p, p], [p, hc.neg(p)], [p, p, None]]
+    for n in (65, 1000):
+        pts = [None if i % 7 == 6 else v for i, v in enumerate(run[:n])]
+        pts[:4] = [p, p, q, hc.neg(q)]
+        cases.append(pts)
+    for pts in cases:
+        want = None
+        for v in pts:
+            want = hc.add(want, v)
+        x, y, z, inf = _jac_lanes(rng, pts)
+        for sms in (132, 2, 1):
+            nb = TG.sum_blocks(len(pts), sms)
+            out = np.zeros(25, np.uint32)
+            lib.b0_gej_sum(x.ctypes.data, y.ctypes.data, z.ctypes.data,
+                           inf.ctypes.data, len(pts), nb, TG.SUM_THREADS,
+                           out.ctypes.data)
+            assert _b0_point(out) == want, (len(pts), sms)
+
+
 def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
     modules and the JAX package; and the B0 field and group core of
     csrc/fe.cuh and group.cuh, built as plain C++ with g++, gives the
     right residues and points.  That checks the portable branch of the
     carry-chain primitives (csrc/common.cuh) and the chains built on them,
-    and with them the comb's T-thread sum (csrc/comb.cuh) and msm_table's
-    lane (csrc/msm.cuh); the PTX forms are held against the plain PyTorch
-    versions on the card by chip_smoke.py."""
+    and with them the comb's T-thread sum (csrc/comb.cuh), msm_table's
+    lane (csrc/msm.cuh), msm_finish's block and gej_sum's blocks (the
+    folds and trees of csrc/group.cuh); the PTX forms are held against the
+    plain PyTorch versions on the card by chip_smoke.py."""
     lib = _b0_harness(tmp_path)
     _check_b0_field(lib)
     _check_b0_group(lib)
     _check_b0_comb(lib)
     _check_b0_msm_table(lib)
+    _check_b0_msm_finish(lib)
+    _check_b0_gej_sum(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

@@ -220,9 +220,13 @@ def test_c_entry_points_match_ctypes_signatures():
             "msm_finish.cu", "msm.cuh"} <= {p.name for p in _build.sources()}
     assert {"secp_gej_add", "secp_msm_table", "secp_msm_winreduce",
             "secp_msm_finish"} <= set(entries)
+    # the one-launch lane sum beside gej_add, and the latency probe of
+    # the finish's and the sum's floor
+    assert {"secp_gej_sum", "secp_latency_probe"} <= set(entries)
     # the commitment and recovery slice's: affine_meta (B10), inv_n (B15b)
     assert {"affine_meta.cu", "inv_n.cu"} <= {p.name for p in _build.sources()}
     assert {"secp_affine_meta", "secp_inv_n"} <= set(entries)
     # the occupancy queries beside the redesigned kernels
     assert {"secp_ecmult_glv_warps", "secp_msm_winreduce_warps",
-            "secp_fixedbase_warps", "secp_msm_table_warps"} <= set(entries)
+            "secp_fixedbase_warps", "secp_msm_table_warps",
+            "secp_msm_finish_warps", "secp_gej_warps"} <= set(entries)
