@@ -59,7 +59,8 @@ and stores.  ``bound_ms`` stays the column that ranks the kernels.
 
 Phase ``build`` fails if a redesigned kernel (``STACK_FREE``: B3, B13,
 the comb's kernels, ``msm_table_kernel``, ``msm_finish_kernel``,
-``gej_sum_kernel`` and ``gej_add_kernel``) reports a stack or a spill in
+``gej_sum_kernel``, ``gej_add_kernel``, ``lift_x_kernel`` and the three
+new SHA-256 kernels) reports a stack or a spill in
 ``ptxas -v``, or if the comb's secret row scan spends more than about one
 instruction (LOP3 or SEL) a word on its selects (``sass["scan"]``);
 phase ``timing`` gives the warps per SM of their launches
@@ -89,12 +90,28 @@ must launch it zero times.
 and ``bound_ms`` are read at the longest of those.  The ``chain64_*`` keys
 are a micro-benchmark of the field multiply at the verify batch sizes
 (64 multiplies a lane), a shape the main path does not give it.
-``sha256`` runs twice in ``context.selftest`` (one block each), once per
-Schnorr verify (the 96-byte challenge after the tag midstate: two blocks
-in one launch), 40 times per ECDSA sign (RFC6979: ten HMACs of four
-launches) and three times per Schnorr sign; it is held against its plain
-version on the operands of every one of those launches, and its ``ms`` is
-read at the verify shape.  The blinded comb is also held on the lanes
+SHA-256 has four entries on one compression core (``csrc/sha256.cu``),
+each counted apart.  ``sha256`` (word-major blocks) runs twice in
+``context.selftest`` (one block each); it is also held and timed on the
+Schnorr challenge's two padded blocks, a shape no path gives it now.
+``sha256_msg`` (a byte message to its digest, padding in the kernel) is
+the tagged hash of each Schnorr verify (the 96-byte challenge), of each
+Schnorr sign (aux, nonce, challenge), batch verify's challenges and
+randomizers and the blinded generator's hash; ``rfc6979`` is ECDSA
+signing's nonce DRBG, one launch a call; ``batch_digest`` batch
+verification's tree, one launch a call.  Each is held against its plain
+version on the operands of every launch of those paths (and
+``batch_digest`` also at n = 1, 2, 3 and 262,143), and timed at the
+verify and sign shapes with a bound of this run's compressions.
+``lift_x`` lifts batch verification's P and R in one launch of 2n lanes;
+beside ``bound_ms`` it carries ``bound_int_ms`` and ``bound_lat_ms``, the
+latency of its chain (255 squarings and 14 multiplies in sequence, the
+check's squaring among them) by the probe's ``lat_sqr_ms`` and
+``lat_mul_ms``, and ``sass_static`` / ``sass_per_lane``: the instructions
+of its kernel from ``cuobjdump -sass``, and that count with each of the
+chain's squaring loops taken as often as it runs (251 squarings in 12
+loops; the squaring's instructions from the ``sass`` probe; the loops' own
+counter and branch not counted).  The blinded comb is also held on the lanes
 k = n - b, 0, 1 and n - 1, the special cases of its last complete add.  ``fixedbase_blinded`` is ``csrc/fixedbase.cu``'s blinded
 entry point (one more mixed add of -b*G), counted apart from the
 unblinded one so that each shows its launches.
@@ -167,7 +184,6 @@ GLV_SPLIT = 2 * 64 + 48 + 2 * 120 + SC_MUL
 # t1 4, Sigma0 5, Maj 5, 3 more adds), 48 schedule words of 13 (sigma0 5,
 # sigma1 5, 3 adds), 8 final adds — counted one each, so halved here
 SHA_BLOCK = (64 * 26 + 48 * 13 + 8) / 2
-SHA_VERIFY_BLOCKS = 2             # the 96-byte challenge after the midstate
 OPS = {
     "mulmod_chain": MUL,          # per multiply of the chain
     # inverse, u1, u2, split
@@ -217,8 +233,13 @@ OPS = {
     "inv_n": MODINV,
     # the comb's gather entry for public scalars: the same 37 mixed adds
     "fixedbase_public": 37 * ADD_AFF,
+    # the SHA-256 entries: per compression (sha_bound counts them)
+    "sha256_msg": SHA_BLOCK,
+    "rfc6979": SHA_BLOCK,
+    "batch_digest": SHA_BLOCK,
 }
-# 32-bit elements read + written per lane
+# 32-bit elements read + written per lane (the SHA-256 entries' bytes:
+# sha_bound)
 WORDS = {
     "mulmod_chain": 3 * 16,
     "ecdsa_prep": 3 * 16 + 52 + 37 + 2,
@@ -227,7 +248,6 @@ WORDS = {
     "lift_x": 16 + 16 + 1,
     "glv_only": 16 + 52 + 2,
     "schnorr_check": 4 * 16 + 1 + 1,
-    "sha256": 8 + 8,              # state in and out; + 16 a block
     "ecdsa_finish": 6 * 16 + 2 * 16 + 2,
     "affine_xy": 3 * 16 + 2 * 16,
     "muladd_n": 3 * 16 + 1 + 16,
@@ -266,6 +286,12 @@ REPLACES = {
     "inv_n": "secp256k1_zkp_tpu/ops/pallas_scalar.py:157",
     "fixedbase_public": "secp256k1_zkp_tpu/ops/pallas_gen.py:114 "
                         "(public digits: the named entry, no scan)",
+    "sha256_msg": "none: XLA glue (secp256k1_zkp_tpu/ops/sha256.py:279 "
+                  "sha256_bytes, :304 tagged_hash_bytes; no Pallas kernel)",
+    "rfc6979": "none: XLA glue (secp256k1_zkp_tpu/ops/sha256.py:201 "
+               "RFC6979; no Pallas kernel)",
+    "batch_digest": "none: XLA glue (secp256k1_zkp_tpu/modules/"
+                    "schnorrsig.py:124 _batch_digest; no Pallas kernel)",
 }
 SOURCES = {
     "mulmod_chain": "secp256k1_zkp_tpu_torch/csrc/mulmod_chain.cu",
@@ -288,6 +314,9 @@ SOURCES = {
     "affine_meta": "secp256k1_zkp_tpu_torch/csrc/affine_meta.cu",
     "inv_n": "secp256k1_zkp_tpu_torch/csrc/inv_n.cu",
     "fixedbase_public": "secp256k1_zkp_tpu_torch/csrc/fixedbase.cu",
+    "sha256_msg": "secp256k1_zkp_tpu_torch/csrc/sha256.cu",
+    "rfc6979": "secp256k1_zkp_tpu_torch/csrc/sha256.cu",
+    "batch_digest": "secp256k1_zkp_tpu_torch/csrc/sha256.cu",
 }
 MAIN_PATH_KERNELS = tuple(OPS)
 # the __global__ function of each redesigned kernel: its ptxas -v must read
@@ -300,11 +329,24 @@ KERNEL_FUNCS = {"ecmult_glv": "ecmult_glv_kernel",
                 "msm_table": "msm_table_kernel",
                 "msm_finish": "msm_finish_kernel",
                 "gej_sum": "gej_sum_kernel",
-                "gej_add": "gej_add_kernel"}
+                "gej_add": "gej_add_kernel",
+                "lift_x": "lift_x_kernel",
+                "sha256_msg": "sha256_msg_kernel",
+                "rfc6979": "rfc6979_kernel",
+                "batch_digest": "batch_digest_kernel"}
 STACK_FREE = tuple(KERNEL_FUNCS.values())
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_public", "ecmult_glv")
-SCHNORR_KERNELS = ("sha256", "lift_x", "glv_only", "fixedbase_public",
+SCHNORR_KERNELS = ("sha256_msg", "lift_x", "glv_only", "fixedbase_public",
                    "ecmult_glv", "schnorr_check")
+# the SHA-256 entries, timed apart (sha_bound); their warps an SM by
+# secp_sha256_warps' op
+SHA_KERNELS = ("sha256", "sha256_msg", "rfc6979", "batch_digest")
+SHA_WARPS_OP = {"sha256_msg": 0, "rfc6979": 1, "batch_digest": 2}
+# lift_x's chain: squarings and multiplies in sequence, and the squarings
+# of its 12 loops
+LIFT_SQR, LIFT_MUL, LIFT_LOOP_SQR, LIFT_LOOPS = 255, 14, 251, 12
+# batch_digest's edge batches, cut from the operands of 262,144
+DIGEST_EDGE_N = (1, 2, 3, 262143)
 SIGN_KERNELS = ("ecdsa_finish", "affine_xy", "muladd_n", "fixedbase_blinded",
                 "fixedbase_digits")
 # the comb's three entries: (kernel mode, blinded)
@@ -323,31 +365,28 @@ ASSET_TAGS = 64                   # generators made from this many tags
 # the tally's negative side: one commitment per asset tag and one that
 # carries the blinds
 TALLY_NEG_LANES = ASSET_TAGS + 1
-# RFC6979 with two candidates: four HMACs to seed the DRBG and three per
-# candidate, each HMAC two one-block compressions of the key block and two
-# hashes (inner, outer) of one launch each
-RFC6979_SHA256 = (4 + 3 * 2) * 4
 # the kernels each path must launch, and how often a call
 PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
          "ecdsa": {k: 1 for k in ECDSA_KERNELS},
          "schnorr": {k: 1 for k in SCHNORR_KERNELS},
-         "ecdsa_sign": {"sha256": RFC6979_SHA256, "fixedbase_digits": 1,
+         # the RFC6979 DRBG (two candidates) in one launch
+         "ecdsa_sign": {"rfc6979": 1, "fixedbase_digits": 1,
                         "ecdsa_finish": 1},
-         "ecdsa_sign_blinded": {"sha256": RFC6979_SHA256,
-                                "fixedbase_blinded": 1, "ecdsa_finish": 1},
+         "ecdsa_sign_blinded": {"rfc6979": 1, "fixedbase_blinded": 1,
+                                "ecdsa_finish": 1},
          # the keypair's d*G and the nonce's k*G; tagged hashes aux, nonce
          # and challenge
          "schnorr_sign": {"fixedbase_digits": 2, "affine_xy": 2,
-                          "sha256": 3, "muladd_n": 1},
+                          "sha256_msg": 3, "muladd_n": 1},
          "schnorr_sign_blinded": {"fixedbase_blinded": 2, "affine_xy": 2,
-                                  "sha256": 3, "muladd_n": 1},
-         # BIP-340 batch verify of n signatures: the tagged hashes of the
-         # challenges, the leaves, each of the ceil(log2 n) node levels and
-         # the randomizers; the lifts of P and R; z*e and z*s; two MSMs
-         # (table, window reduce, finish); rhs = their sum by gej_add;
-         # (sum z s)*G by the comb's gather entry
-         "schnorr_batch": lambda n: {
-             "sha256": 3 + (n - 1).bit_length(), "lift_x": 2,
+                                  "sha256_msg": 3, "muladd_n": 1},
+         # BIP-340 batch verify of n signatures, whatever n: the lifts of P
+         # and R in one launch; the tagged hashes of the challenges and of
+         # the randomizers; the batch digest (leaves and every level); z*e
+         # and z*s; two MSMs (table, window reduce, finish); rhs = their sum
+         # by gej_add; (sum z s)*G by the comb's gather entry
+         "schnorr_batch": {
+             "sha256_msg": 2, "batch_digest": 1, "lift_x": 1,
              "muladd_n": 2, "fixedbase_public": 1, "msm_table": 2,
              "msm_winreduce": 2, "msm_finish": 2, "gej_add": 1},
          "msm": {"msm_table": 1, "msm_winreduce": 1, "msm_finish": 1},
@@ -356,7 +395,7 @@ PATHS = {"selftest": {"mulmod_chain": 4, "sha256": 2},
                       "affine_meta": 1},
          # both hashes in one launch (svdw is eager glue), H1 + H2 and
          # + b*G, b*G by the comb, the affine point, its serialization
-         "generator_blinded": {"sha256": 1, "gej_add": 2,
+         "generator_blinded": {"sha256_msg": 1, "gej_add": 2,
                                "fixedbase_digits": 1, "affine_xy": 1,
                                "affine_meta": 1},
          # r^-1, R's y, u1 and u2 (one launch), u2's split, u1*G, Q, affine
@@ -461,7 +500,9 @@ def sass_counts() -> dict:
     IMAD.MOV, a register move) and all ("all").  For the comb's row scan
     (``scan``): its word selects (LOP3 and SEL) per word of the entries it
     scans past the first (four words a 16-byte load), and its branches
-    (the loop's own; none may test a digit)."""
+    (the loop's own; none may test a digit).  For ``lift_x`` its kernel's
+    instructions (``sass_static``) and an estimate of those a lane runs
+    (``sass_per_lane``: module docstring)."""
     nvcc = _build.find_nvcc()
     work = _build.BUILD_DIR / "sass_probe"
     work.mkdir(parents=True, exist_ok=True)
@@ -470,6 +511,30 @@ def sass_counts() -> dict:
     subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-I", str(_build.SRC_DIR), str(src),
                     "-o", str(cubin)], check=True, capture_output=True)
+    counts = _sass_by_function(nvcc, cubin)
+    # lift_x's kernel as the build compiles it
+    lcubin = work / "lift_x.cubin"
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(_build.SRC_DIR),
+                    str(_build.SRC_DIR / "lift_x.cu"), "-o", str(lcubin)],
+                   check=True, capture_output=True)
+    lift = _sass_by_function(nvcc, lcubin)["lift_x_kernel"]["all"]
+    out = {k: {c: counts[f"probe_{k}"][c] - counts[f"probe_{k}_base"][c]
+               for c in ("mul", "imad", "all")} for k in ("mul", "sqr")}
+    scan, base = counts["probe_scan"], counts["probe_scan_base"]
+    words = 4 * (scan["ldg128"] - base["ldg128"])
+    out["scan"] = dict(selects=scan["select"] - base["select"],
+                       words=words, branches=scan["branch"],
+                       selects_per_word=(scan["select"] - base["select"])
+                       / max(words, 1))
+    out["lift_x"] = dict(sass_static=lift, sass_per_lane=lift + (
+        LIFT_LOOP_SQR - LIFT_LOOPS) * out["sqr"]["all"])
+    return out
+
+
+def _sass_by_function(nvcc: str, cubin: Path) -> dict:
+    """``cuobjdump -sass`` of ``cubin`` -> {function: counts} (module
+    docstring, :func:`sass_counts`)."""
     dump = subprocess.run(
         [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
         check=True, capture_output=True, text=True).stdout
@@ -493,15 +558,7 @@ def sass_counts() -> dict:
             cur["select"] += op.startswith(("LOP3", "SEL"))
             cur["ldg128"] += op.startswith("LDG") and ".128" in op
             cur["branch"] += op.startswith(("BRA", "BRX", "JMP"))
-    out = {k: {c: counts[f"probe_{k}"][c] - counts[f"probe_{k}_base"][c]
-               for c in ("mul", "imad", "all")} for k in ("mul", "sqr")}
-    scan, base = counts["probe_scan"], counts["probe_scan_base"]
-    words = 4 * (scan["ldg128"] - base["ldg128"])
-    out["scan"] = dict(selects=scan["select"] - base["select"],
-                       words=words, branches=scan["branch"],
-                       selects_per_word=(scan["select"] - base["select"])
-                       / max(words, 1))
-    return out
+    return counts
 
 
 def profile_call(fn):
@@ -538,16 +595,49 @@ def bound_of(madds: float, nbytes: float):
 
 def bound_ms(name: str, lanes: int, chain: int = 1):
     """Least time for ``lanes`` lanes of kernel ``name`` (``chain``
-    multiplies a lane for mulmod_chain, blocks a lane for sha256), and
-    what sets it."""
-    words = WORDS[name] + (16 * chain if name == "sha256" else 0)
-    return bound_of(OPS[name] * chain * lanes, words * 4 * lanes)
+    multiplies a lane for mulmod_chain), and what sets it."""
+    return bound_of(OPS[name] * chain * lanes, WORDS[name] * 4 * lanes)
 
 
 def int_bound(name: str, units: int) -> float:
     """Least ms for ``units`` lanes (adds, for msm_winreduce) of kernel
     ``name``'s multiply-adds (``OPS``) at the integer multiply-add rate."""
     return units * OPS[name] / PEAK_IMAD_PER_S * 1e3
+
+
+def sha_compressions(name: str, t: dict) -> int:
+    """Compressions of one launch of a SHA-256 entry on the operands
+    ``t``, counted from this run's data."""
+    if name == "sha256":
+        return t["sha_blocks"].shape[0] // 16 * t["sha_blocks"].shape[1]
+    if name == "sha256_msg":
+        lanes, L = t["sha_msg"].shape
+        return lanes * ((L + 9 + 63) // 64)
+    if name == "rfc6979":
+        r = t["rounds"]
+        return t["keydata"].shape[0] * (14 + 2 * r + 6 * (r - 1))
+    n, nodes, k = t["px"].shape[0], 0, t["px"].shape[0]
+    while k > 1:
+        k = (k + 1) // 2
+        nodes += k
+    return 3 * n + 2 * nodes
+
+
+def sha_bound(name: str, t: dict):
+    """Least time of one launch of a SHA-256 entry on ``t``: its
+    compressions (``SHA_BLOCK`` each) and the bytes it must read and
+    write."""
+    if name == "sha256":
+        nbytes = 4 * (t["sha_blocks"].numel() + 2 * t["sha_state"].numel())
+    elif name == "sha256_msg":
+        lanes, L = t["sha_msg"].shape
+        nbytes = lanes * (L + 32 + (32 if t.get("sha_lane") is not None
+                                    else 0))
+    elif name == "rfc6979":
+        nbytes = t["keydata"].shape[0] * (64 + 32 * t["rounds"])
+    else:
+        nbytes = 128 * t["px"].shape[0] + 32
+    return bound_of(sha_compressions(name, t) * SHA_BLOCK, nbytes)
 
 
 def msm_bound(name: str, t: dict):
@@ -1423,6 +1513,8 @@ def schnorr_inputs(msgs, sigs, pxs, dev):
                  mid.expand(len(msgs), 8)),
              sha_blocks=cuda_sha256.words_to_rows(
                  H._pad_bytes_to_blocks(ch, 64)),
+             sha_msg=ch, sha_start=H.tag_midstate("BIP0340/challenge"),
+             sha_consumed=64,
              px=rows(pkx), rx=rows(F.normalize(rx)),
              pinf=torch.zeros(len(msgs), dtype=torch.bool, device=dev))
     e = schnorrsig.challenge(sigs[:, :32], pxs, msgs)
@@ -1446,7 +1538,8 @@ def sign_inputs(msgs, secs, blind, dev):
     d, _ = S.from_bytes_be(secs)
     m, _ = S.from_bytes_be(msgs)
     k, _ = ecdsa._pick_nonce(ecdsa.rfc6979_nonce(msgs, secs))
-    t = dict(k=rows(k), m=rows(m), d=rows(d))
+    t = dict(k=rows(k), m=rows(m), d=rows(d), rounds=2,
+             keydata=torch.cat([secs, msgs], -1))
     t["gdigs"] = cuda_gen.gen_digits(t["k"])
     t["gjac"] = cuda_gen.fixedbase_digits(t["gdigs"])
     # the blinded comb also on the lanes of its complete add's special
@@ -1491,7 +1584,9 @@ MSM_TARGETS = {"msm_table": (cuda_msm, "msm_table"),
                "msm_winreduce": (cuda_msm, "msm_winreduce"),
                "msm_finish": (cuda_msm, "msm_finish"),
                "gej_add": (cuda_group, "gej_add")}
-SHA_TARGETS = {"sha256": (cuda_sha256, "sha256_blocks")}
+SHA_TARGETS = {"sha256_msg": (cuda_sha256, "sha256_msg"),
+               "rfc6979": (cuda_sha256, "rfc6979"),
+               "batch_digest": (cuda_sha256, "batch_digest")}
 BATCH_TARGETS = {**MSM_TARGETS, **SHA_TARGETS,
                  "lift_x": (cuda_field, "lift_x"),
                  "muladd_n": (cuda_gen, "muladd_n"),
@@ -1503,16 +1598,26 @@ SECRET_COMB_TARGET = {"fixedbase_digits": (cuda_gen, "fixedbase_digits")}
 SUM_TARGET = {"gej_sum": (msm, "gej_sum")}
 
 
+def sha_msg_sets(seen):
+    """The operand sets of the ``sha256_msg`` launches caught by
+    :func:`catch`."""
+    return [dict(sha_msg=a[0], sha_start=a[1], sha_consumed=a[2],
+                 sha_lane=a[3] if len(a) > 3 else None)
+            for a, _ in seen.get("sha256_msg", [])]
+
+
 def msm_sets(seen, off_curve: bool = False):
     """The operands of every launch caught by :func:`catch`, as tensor
     sets for :func:`compare`, by kernel; for ``gej_add`` also the last
     MSM's window partials added to themselves with P + P, P + (-P) and
     infinity lanes mixed in; with ``off_curve``, the first table's
     operands with a point off the curve on lane 1."""
-    sets = {k: [] for k in (*MSM_KERNELS, "gej_add", "sha256", "lift_x",
-                            "muladd_n", "fixedbase_public")}
-    for (state, blocks), _ in seen.get("sha256", []):
-        sets["sha256"].append(dict(sha_state=state, sha_blocks=blocks))
+    sets = {k: [] for k in (*MSM_KERNELS, "gej_add", "sha256_msg",
+                            "batch_digest", "lift_x", "muladd_n",
+                            "fixedbase_public")}
+    sets["sha256_msg"] = sha_msg_sets(seen)
+    for (px, msg, sig), _ in seen.get("batch_digest", []):
+        sets["batch_digest"].append(dict(px=px, msg=msg, sig=sig))
     for (px,), _ in seen.get("lift_x", []):
         sets["lift_x"].append(dict(px=px))
     for (k, e, d, neg), _ in seen.get("muladd_n", []):
@@ -1666,6 +1771,17 @@ def run_pair(name, t, use_ref: bool):
         f = (cuda_sha256.sha256_blocks_ref if use_ref
              else cuda_sha256.sha256_blocks)
         return (f(t["sha_state"], t["sha_blocks"]),)
+    if name == "sha256_msg":
+        f = cuda_sha256.sha256_msg_ref if use_ref else cuda_sha256.sha256_msg
+        return (f(t["sha_msg"], t["sha_start"], t["sha_consumed"],
+                  t.get("sha_lane")),)
+    if name == "rfc6979":
+        f = cuda_sha256.rfc6979_ref if use_ref else cuda_sha256.rfc6979
+        return (f(t["keydata"], t["rounds"]),)
+    if name == "batch_digest":
+        f = (cuda_sha256.batch_digest_ref if use_ref
+             else cuda_sha256.batch_digest)
+        return (f(t["px"], t["msg"], t["sig"]),)
     if name == "lift_x":
         f = cuda_field.lift_x_ref if use_ref else cuda_field.lift_x
         return f(t["px"])
@@ -1915,24 +2031,35 @@ def main() -> int:
                 results[name]["plain_ms"] = plain_ms
             elif n in sizes:
                 results[name][f"plain_ms_{n}"] = plain_ms
-        # sha256 on the operands of every launch of the two sign paths
-        # (HMAC key blocks from the IV, the 97-byte RFC6979 message,
-        # tagged hashes from their midstates), caught from one call each
+        # the word-major blocks on the Schnorr challenge's two blocks
+        err, plain_ms = compare("sha256", stensors[n])
+        record("sha256", f"{n} lanes, the Schnorr challenge's 2 blocks",
+               err, plain_ms)
+        if n in sizes:
+            results["sha256"]["plain_ms" if n == sizes[0]
+                              else f"plain_ms_{n}"] = plain_ms
+        # rfc6979 and sha256_msg on the operands of every launch of the two
+        # sign paths (the DRBG; the tagged hashes from their midstates),
+        # caught from one call each
         msgs, secs = gbatches[n][:2]
         smsgs, ssecs, sauxs = gsbatches[n][:3]
-        sha_sets = []
-        for call in (lambda: ecdsa.sign(msgs, secs, device=dev),
-                     lambda: schnorrsig.sign(smsgs, ssecs, sauxs,
-                                             device=dev)):
-            _, seen = catch(call, SHA_TARGETS)
-            sha_sets += [dict(sha_state=state, sha_blocks=blocks)
-                         for (state, blocks), _ in seen["sha256"]]
-        checks = [compare("sha256", t) for t in sha_sets]
-        most = max(t["sha_blocks"].shape[0] // 16 for t in sha_sets)
-        record("sha256", f"{n} lanes, sign paths: {len(sha_sets)} launches "
-               f"of 1-{most} blocks", max(e for e, _ in checks),
+        _, seen = catch(lambda: ecdsa.sign(msgs, secs, device=dev),
+                        SHA_TARGETS)
+        for (kd, rounds), _ in seen["rfc6979"]:
+            err, plain_ms = compare("rfc6979", dict(keydata=kd,
+                                                    rounds=rounds))
+            record("rfc6979", f"{n} lanes, ECDSA sign, {rounds} candidates",
+                   err, plain_ms)
+            if n in sizes:
+                results["rfc6979"]["plain_ms" if n == sizes[0]
+                                   else f"plain_ms_{n}"] = plain_ms
+        _, seen = catch(lambda: schnorrsig.sign(smsgs, ssecs, sauxs,
+                                                device=dev), SHA_TARGETS)
+        checks = [compare("sha256_msg", t) for t in sha_msg_sets(seen)]
+        record("sha256_msg", f"{n} lanes, Schnorr sign: {len(checks)} "
+               "launches", max(e for e, _ in checks),
                sum(ms for _, ms in checks))
-        del sha_sets
+        del seen
         # batch verify: every kernel of the path on the operands of one
         # call, caught at the wrappers — both MSMs (128- and 256-bit
         # scalars) and the rhs add, the hashes (leaves, node levels,
@@ -1954,12 +2081,23 @@ def main() -> int:
                     results[name][f"plain_ms_{n}"] = checks[1][1]
             elif name == "gej_add" and n in sizes:
                 results[name][f"rhs_plain_ms_{n}"] = checks[0][1]
+            elif name == "batch_digest" and n in sizes:
+                results[name]["plain_ms" if n == sizes[0]
+                              else f"plain_ms_{n}"] = checks[0][1]
         if n == sizes[1]:
             for label, t in finish_edge_sets(*bsets["msm_finish"]):
                 err, plain_ms = compare("msm_finish", t)
                 record("msm_finish", label, err, plain_ms)
+            # the tree's edges: one leaf, two, three, 2^18 - 1
+            whole_batch = bsets["batch_digest"][0]
+            for k in DIGEST_EDGE_N:
+                err, plain_ms = compare("batch_digest", {
+                    c: v[:k] for c, v in whole_batch.items()})
+                record("batch_digest", f"{k} signatures", err, plain_ms)
         if n in sizes:
-            btensors[n] = {k: bsets[k] for k in (*MSM_KERNELS, "gej_add")}
+            btensors[n] = {k: bsets[k] for k in (*MSM_KERNELS, "gej_add",
+                                                  "batch_digest", "lift_x",
+                                                  "sha256_msg")}
         del bsets
     # commitments and recovery: affine_meta on the commit pipeline's
     # jacobian result (caught from one pedersen_commit_bytes call) with
@@ -2168,8 +2306,13 @@ def main() -> int:
     t1 = time.perf_counter()
     (hgen, hok, hser), seen = catch(lambda: counted(
         "generator_blinded", generate_and_serialize),
-        {**SECRET_COMB_TARGET, "gej_add": (cuda_group, "gej_add")})
+        {**SECRET_COMB_TARGET, "gej_add": (cuda_group, "gej_add"),
+         "sha256_msg": (cuda_sha256, "sha256_msg")})
     gen_s = time.perf_counter() - t1
+    for t in sha_msg_sets(seen):
+        err, plain_ms = compare("sha256_msg", t)
+        record("sha256_msg", f"{sizes[0]} keys, generator: "
+               f"{t['sha_msg'].shape[0]} messages", err, plain_ms)
     err, plain_ms = compare("fixedbase_digits", dict(
         gdigs=seen["fixedbase_digits"][0][0][0]))
     record("fixedbase_digits", f"{sizes[0]} lanes, generator blind", err,
@@ -2290,7 +2433,7 @@ def main() -> int:
         runs = []
         if name in ECDSA_KERNELS or chain64:
             runs.append(("chain64_" if chain64 else "", tensors))
-        if name in SCHNORR_KERNELS:
+        if name in SCHNORR_KERNELS and name not in SHA_KERNELS:
             runs.append(("schnorr_" if name in ECDSA_KERNELS else "",
                          stensors))
         if name in SIGN_KERNELS:
@@ -2299,8 +2442,7 @@ def main() -> int:
             runs.append(("", {"affine_meta": ptensors,
                               "inv_n": rtensors}[name]))
         for pre, tset in runs:
-            chain = (CHAIN_N if chain64 else
-                     SHA_VERIFY_BLOCKS if name == "sha256" else 1)
+            chain = CHAIN_N if chain64 else 1
             for n in sizes:
                 ms = time_ms(lambda: run_pair(name, tset[n], False))
                 b_ms, b_by = bound_ms(name, n, chain)
@@ -2316,6 +2458,46 @@ def main() -> int:
     lib = _build.lib()
     lat = latency_ms(lib, dev)
     emit("timing", name="latency_probe", **lat)
+    # the SHA-256 entries at the verify and sign shapes: word-major blocks
+    # and sha256_msg on the Schnorr challenge, rfc6979 on ECDSA sign's key
+    # material, batch_digest on batch verify's operands
+    for name in SHA_KERNELS:
+        for n in sizes:
+            t = {"rfc6979": gtensors[n],
+                 "batch_digest": btensors[n]["batch_digest"][0]}.get(
+                     name, stensors[n])
+            ms = time_ms(lambda: run_pair(name, t, False), reps=15)
+            b_ms, b_by = sha_bound(name, t)
+            results[name].update({f"ms_{n}": ms, f"bound_ms_{n}": b_ms,
+                                  f"compressions_{n}":
+                                      sha_compressions(name, t)})
+            if n == sizes[0]:
+                results[name].update(ms=ms, lanes=n, bound_ms=b_ms,
+                                     bound_by=b_by)
+            emit("timing", name=name, lanes=n, ms=ms, bound_ms=b_ms,
+                 bound_by=b_by, compressions=sha_compressions(name, t))
+        if name in SHA_WARPS_OP:
+            results[name]["warps_per_sm"] = lib.secp_sha256_warps(
+                SHA_WARPS_OP[name])
+    # lift_x: batch verify's one launch of 2n lanes beside the Schnorr
+    # verify's n; its integer-rate bound and its chain's latency floor
+    lx = results["lift_x"]
+    lx["warps_per_sm"] = lib.secp_lift_x_warps()
+    lx.update(sass["lift_x"])
+    lx["bound_lat_ms"] = LIFT_SQR * lat["lat_sqr_ms"] \
+        + LIFT_MUL * lat["lat_mul_ms"]
+    for n in sizes:
+        t = btensors[n]["lift_x"][0]
+        lanes = t["px"].shape[1]
+        ms = time_ms(lambda: run_pair("lift_x", t, False), reps=15)
+        lx.update({f"bound_int_ms_{n}": int_bound("lift_x", n),
+                   f"batch_ms_{lanes}": ms,
+                   f"batch_bound_ms_{lanes}": bound_ms("lift_x", lanes)[0],
+                   f"batch_bound_int_ms_{lanes}": int_bound("lift_x",
+                                                            lanes)})
+        emit("timing", name="lift_x", lanes=lanes, path="batch verify",
+             ms=ms, bound_int_ms=int_bound("lift_x", lanes),
+             bound_lat_ms=lx["bound_lat_ms"])
     # the MSM engine: the 256-bit MSM's launch of each kernel at both
     # batch-verify sizes and on the 2^20-point MSM; the 128-bit MSM's
     # launches beside them; the finish's latency floor beside its bound

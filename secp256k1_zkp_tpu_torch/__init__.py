@@ -13,7 +13,8 @@ of tensors (``LB``/``GE``/``GEJ``), an explicit device everywhere.
                         ``gej_eq``, ``ge_from_gej``
 ``ops.msm``             ``ecmult_multi`` and the lane sum ``_tree_reduce``
 ``ops.sha256``          SHA-256, HMAC, RFC6979 and BIP-340 tagged hashes
-``ops.cuda_sha256``     the SHA-256 compression kernel
+``ops.cuda_sha256``     the SHA-256 kernels: blocks, messages, RFC6979 and
+                        the batch digest
 ``ops.cuda_field``      mod-p library + ``mulmod_chain``, ``lift_x``,
                         ``schnorr_check``, ``affine_meta``
 ``ops.cuda_divsteps``   safegcd modular inverse, plain version

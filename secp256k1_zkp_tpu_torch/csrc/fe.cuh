@@ -352,29 +352,59 @@ SECP_INLINE fe fe_zero() {
     return r;
 }
 
-// a^(2^n): n dependent squarings
-SECP_INLINE fe fe_sqr_n(fe a, int n) {
+// a <- a^(2^n): n dependent squarings on the inlined core, in a loop that
+// is not unrolled (one squaring's code a call site, nothing passed through
+// a call)
+SECP_INLINE void fe_sqr_n_to(fe& a, int n) {
 #pragma unroll 1
-    for (int i = 0; i < n; ++i) a = fe_sqr(a);
-    return a;
+    for (int i = 0; i < n; ++i) fe_sqr_to(a, a);
 }
 
-// a^((p+1)/4), a square root of a wherever one exists (p = 3 mod 4); the
-// caller checks r^2 == a.  The fixed addition chain of the reference's
-// secp256k1_fe_sqrt (field_impl.h): 253 squarings and 13 multiplies.
+// r = a^((p+1)/4), a square root of a wherever one exists (p = 3 mod 4);
+// the caller checks r^2 == a.  The fixed addition chain of the reference's
+// secp256k1_fe_sqrt (field_impl.h): 253 squarings and 13 multiplies, by
+// reference on the force-inlined core (r may alias a).  At most six
+// elements are live (x2, x3, x22, x44, x88 and the running power).
+SECP_INLINE void fe_pow_sqrt_to(fe& r, const fe& a) {
+    fe x2, x3, x22, x44, x88, t;
+    fe_sqr_to(x2, a);
+    fe_mul_to(x2, x2, a);
+    fe_sqr_to(x3, x2);
+    fe_mul_to(x3, x3, a);
+    t = x3;                                   // x6
+    fe_sqr_n_to(t, 3);
+    fe_mul_to(t, t, x3);
+    fe_sqr_n_to(t, 3);                        // x9
+    fe_mul_to(t, t, x3);
+    fe_sqr_n_to(t, 2);                        // x11
+    fe_mul_to(t, t, x2);
+    x22 = t;
+    fe_sqr_n_to(x22, 11);
+    fe_mul_to(x22, x22, t);
+    x44 = x22;
+    fe_sqr_n_to(x44, 22);
+    fe_mul_to(x44, x44, x22);
+    x88 = x44;
+    fe_sqr_n_to(x88, 44);
+    fe_mul_to(x88, x88, x44);
+    t = x88;                                  // x176
+    fe_sqr_n_to(t, 88);
+    fe_mul_to(t, t, x88);
+    fe_sqr_n_to(t, 44);                       // x220
+    fe_mul_to(t, t, x44);
+    fe_sqr_n_to(t, 3);                        // x223
+    fe_mul_to(t, t, x3);
+    fe_sqr_n_to(t, 23);
+    fe_mul_to(t, t, x22);
+    fe_sqr_n_to(t, 6);
+    fe_mul_to(t, t, x2);
+    fe_sqr_n_to(t, 2);
+    r = t;
+}
+
+// the by-value form, a thin wrapper over the chain above (affine_meta.cu)
 SECP_NOINLINE fe fe_pow_sqrt(fe a) {
-    fe x2 = fe_mul(fe_sqr(a), a);
-    fe x3 = fe_mul(fe_sqr(x2), a);
-    fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);
-    fe x9 = fe_mul(fe_sqr_n(x6, 3), x3);
-    fe x11 = fe_mul(fe_sqr_n(x9, 2), x2);
-    fe x22 = fe_mul(fe_sqr_n(x11, 11), x11);
-    fe x44 = fe_mul(fe_sqr_n(x22, 22), x22);
-    fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);
-    fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);
-    fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);
-    fe x223 = fe_mul(fe_sqr_n(x220, 3), x3);
-    fe t = fe_mul(fe_sqr_n(x223, 23), x22);
-    t = fe_mul(fe_sqr_n(t, 6), x2);
-    return fe_sqr_n(t, 2);
+    fe r;
+    fe_pow_sqrt_to(r, a);
+    return r;
 }

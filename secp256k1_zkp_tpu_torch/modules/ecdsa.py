@@ -69,11 +69,16 @@ def verify(msg32, sig64, pub: GE, device="cuda"):
 def rfc6979_nonce(msg32, sec32, counter_rounds: int = 2):
     """Batched RFC6979 candidates, ``[counter_rounds, B, 8]`` words: the
     reference's nonce_function_rfc6979 with no extra data
-    (src/secp256k1.c:519-560), key material sec32 || msg32."""
-    kw = torch.cat([H.bytes32_to_words(sec32), H.bytes32_to_words(msg32)],
-                   -1)
-    drbg = H.RFC6979(kw)
-    return torch.stack([drbg.generate32() for _ in range(counter_rounds)], 0)
+    (src/secp256k1.c:519-560), key material sec32 || msg32.  On a card
+    one launch of the ``rfc6979`` kernel; on the CPU (or with a
+    ``set_compress`` override) :func:`rfc6979_nonce_ref`."""
+    return H.rfc6979(torch.cat([sec32, msg32], -1), counter_rounds)
+
+
+def rfc6979_nonce_ref(msg32, sec32, counter_rounds: int = 2):
+    """Plain version of :func:`rfc6979_nonce`: the eager HMAC chain (ten
+    HMACs for two candidates; on a card each hash a kernel launch)."""
+    return H.rfc6979_chain(torch.cat([sec32, msg32], -1), counter_rounds)
 
 
 def _pick_nonce(nonces_words):
@@ -102,9 +107,9 @@ def sign(msg32, sec32, blind=None, device="cuda"):
     signature is zeroed there.  ``blind`` is a ``Context.blind`` (or None):
     it changes the addition chain of k*G, never a byte of the result.
 
-    The steps of ``sign_tpu``: parse d, RFC6979 in plain PyTorch (on a
-    card every hash is the SHA-256 kernel: 40 launches), k*G by the comb
-    kernel (blinded or not), then the finish kernel for r, s, recid."""
+    The steps of ``sign_tpu``: parse d, the RFC6979 nonces (on a card one
+    launch of the ``rfc6979`` kernel), k*G by the comb kernel (blinded or
+    not), then the finish kernel for r, s, recid."""
     dev = resolve_device(device)
     msg32 = torch.as_tensor(msg32).to(dev)
     sec32 = torch.as_tensor(sec32).to(dev)

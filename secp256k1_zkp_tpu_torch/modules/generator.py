@@ -99,9 +99,9 @@ def generator_generate(key32, blind32=None, device="cuda"):
 
     ok is false where a hash is >= p (fe_set_b32_limit) or the blind is
     >= n; those lanes are computed all the same.  Both hashes of a lane
-    are one SHA-256 launch for the 2B messages and both maps one ``svdw``
-    over 2B lanes; H1 + H2 and + b*G are ``gej_add`` launches, b*G the
-    comb, the affine result ``affine_xy``."""
+    are one ``sha256_msg`` launch for the 2B messages and both maps one
+    ``svdw`` over 2B lanes; H1 + H2 and + b*G are ``gej_add`` launches,
+    b*G the comb, the affine result ``affine_xy``."""
     dev = resolve_device(device)
     key32 = _bytes_batch(key32, dev)
     lanes = key32.shape[0]
@@ -110,7 +110,7 @@ def generator_generate(key32, blind32=None, device="cuda"):
         none = torch.zeros(0, dtype=torch.bool, device=dev)
         return GE(z, z, none), none
     msgs = torch.cat([_prefixed(_PREFIX1, key32), _prefixed(_PREFIX2, key32)])
-    t, t_ovf = F.from_bytes_be(H.words_to_bytes32(H.sha256_bytes(msgs)))
+    t, t_ovf = F.from_bytes_be(H.sha256_digest(msgs))
     pts = svdw(t)
     p1, p2 = (GE(LB(pts.x.v[k], MASK16), LB(pts.y.v[k], MASK16), pts.inf[k])
               for k in (slice(0, lanes), slice(lanes, None)))

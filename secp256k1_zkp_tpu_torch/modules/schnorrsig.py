@@ -48,8 +48,7 @@ def challenge(rx32, px32, msg32):
     """e = H_tag("BIP0340/challenge", r || px || msg) mod n, as a canonical
     ``LB`` (reduced, never rejected)."""
     ch = torch.cat([rx32, px32, msg32], -1)
-    e_b = H.words_to_bytes32(H.tagged_hash_bytes("BIP0340/challenge", ch))
-    e, _ = S.from_bytes_be(e_b)
+    e, _ = S.from_bytes_be(H.tagged_digest("BIP0340/challenge", ch))
     return e
 
 
@@ -134,7 +133,7 @@ def sign(msg32, sec32, aux32=None, blind=None, device="cuda"):
     XOR H_aux(aux); k = H_nonce(t || px || msg) mod n; R = k*G (comb,
     ``affine_xy``); e = H_challenge(r || px || msg) mod n; s = (R odd ?
     n - k : k) + e*d by the ``muladd_n`` kernel.  On a card the three
-    tagged hashes are one SHA-256 kernel launch each."""
+    tagged hashes are one ``sha256_msg`` launch each."""
     dev = resolve_device(device)
     msg32 = _batch_of(msg32, dev)
     sec32 = _batch_of(sec32, dev)
@@ -145,11 +144,9 @@ def sign(msg32, sec32, aux32=None, blind=None, device="cuda"):
                 torch.zeros(0, dtype=torch.bool, device=dev))
     d_even, px32, _, ok = keypair_xonly(sec32, blind, dev)
 
-    aux_hash = H.words_to_bytes32(H.tagged_hash_bytes("BIP0340/aux", aux32))
-    t = S.to_bytes_be(d_even) ^ aux_hash
-    rand = H.words_to_bytes32(H.tagged_hash_bytes(
+    t = S.to_bytes_be(d_even) ^ H.tagged_digest("BIP0340/aux", aux32)
+    k, _ = S.from_bytes_be(H.tagged_digest(
         "BIP0340/nonce", torch.cat([t, px32, msg32], -1)))
-    k, _ = S.from_bytes_be(rand)
     ok = ok & ~S.is_zero(k)
 
     k_t = kernel_rows(k)
@@ -171,19 +168,9 @@ def _batch_digest(msgs32, sigs64, pxs32, n):
     """One 32-byte digest binding every batch input (each pk_i, msg_i and
     the whole sig_i): tagged leaf hashes of pk || msg || sig, then a binary
     tree of ``BIP0340/batch/node`` hashes, a zero node padding each odd
-    level.  One SHA-256 launch for the leaves and one per level on a
-    card."""
-    nodes = H.words_to_bytes32(H.tagged_hash_bytes(
-        "BIP0340/batch/leaf", torch.cat([pxs32, msgs32, sigs64], -1)))
-    k = n
-    while k > 1:
-        if k % 2:
-            nodes = torch.cat([nodes, nodes.new_zeros((1, 32))], 0)
-            k += 1
-        nodes = H.words_to_bytes32(H.tagged_hash_bytes(
-            "BIP0340/batch/node", nodes.reshape(k // 2, 64)))
-        k //= 2
-    return nodes[0]
+    level (``ops/sha256.batch_digest``).  One ``batch_digest`` launch on a
+    card, whatever n."""
+    return H.batch_digest(pxs32[:n], msgs32[:n], sigs64[:n])
 
 
 def _batch_randomizers(msgs32, sigs64, pxs32, seed32, n):
@@ -199,8 +186,7 @@ def _batch_randomizers(msgs32, sigs64, pxs32, seed32, n):
     i_b = torch.stack([(idx >> sh) & 0xFF for sh in (24, 16, 8, 0)],
                       -1).to(torch.uint8)
     zmsg = torch.cat([seed32.expand(n, 32), root.expand(n, 32), i_b], -1)
-    z, _ = S.from_bytes_be(H.words_to_bytes32(
-        H.tagged_hash_bytes("BIP0340/batch", zmsg)))
+    z, _ = S.from_bytes_be(H.tagged_digest("BIP0340/batch", zmsg))
     zv = z.v.clone()
     zv[:, 8:] = 0                            # truncate to 128 bits
     zv[0] = 0
@@ -222,9 +208,10 @@ def batch_verify(msgs32, sigs64, pxs32, seed32=None, device="cuda"):
     s >= n, px >= p or failed lift rejects the batch.  n = 0 is refused,
     as the JAX function refuses it (its digest indexes the empty tree).
 
-    The steps of ``batch_verify_tpu``: ``lift_x`` of the P_i and R_i; the
-    challenges, the leaf, node and randomizer hashes (one SHA-256 launch
-    each, a node level per launch); z*e and z*s by ``muladd_n``; sum z*s
+    The steps of ``batch_verify_tpu``: ``lift_x`` of the P_i and R_i (one
+    launch over both); the challenges and the randomizers (one
+    ``sha256_msg`` launch each) and the batch digest (one ``batch_digest``
+    launch: leaves, node levels, padding); z*e and z*s by ``muladd_n``; sum z*s
     mod n as one column sum (exact in int64 for any n up to 2^47); two
     MSMs — sum z R with 128-bit scalars, sum (z e) P with 256-bit — on the
     MSM engine (failed lifts are infinite lanes); their sum by
@@ -242,8 +229,11 @@ def batch_verify(msgs32, sigs64, pxs32, seed32=None, device="cuda"):
     rx, rx_ovf = F.from_bytes_be(sigs64[:, :32])
     s, s_ovf = S.from_bytes_be(sigs64[:, 32:])
     pkx, pkx_ovf = F.from_bytes_be(pxs32)
-    py, p_ok = cuda_field.lift_x(kernel_rows(pkx))
-    ry, r_ok = cuda_field.lift_x(kernel_rows(rx))
+    # P's and R's lifts in one launch of 2n lanes
+    ys, ys_ok = cuda_field.lift_x(torch.cat([kernel_rows(pkx),
+                                             kernel_rows(rx)], 1))
+    py, ry = ys[:, :n], ys[:, n:]
+    p_ok, r_ok = ys_ok[:n], ys_ok[n:]
     ok = (p_ok & r_ok & ~rx_ovf & ~s_ovf & ~pkx_ovf).all()
 
     e = challenge(sigs64[:, :32], pxs32, msgs32)

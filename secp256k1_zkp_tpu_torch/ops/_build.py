@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_U32 = ctypes.c_uint32
 
 # name -> argtypes (pointers and the stream as c_void_p, sizes as c_int)
 _SIGNATURES = {
@@ -44,9 +45,15 @@ _SIGNATURES = {
     "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP, _VP],
     "secp_ecmult_glv_warps": [_INT],
     "secp_lift_x": [_VP, _VP, _VP, _INT, _VP],
+    "secp_lift_x_warps": [],
     "secp_glv_only": [_VP, _VP, _VP, _INT, _VP],
     "secp_schnorr_check": [_VP] * 6 + [_INT, _VP],
     "secp_sha256": [_VP, _VP, _VP, _INT, _INT, _VP],
+    "secp_sha256_msg": [_VP, _INT, _VP, _VP, _U32, _U32, _VP, _INT, _INT,
+                        _VP],
+    "secp_rfc6979": [_VP, _VP, _VP, _INT, _INT, _VP],
+    "secp_batch_digest": [_VP] * 6 + [_INT, _VP],
+    "secp_sha256_warps": [_INT],
     "secp_ecdsa_finish": [_VP] * 9 + [_INT, _VP],
     "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
@@ -72,7 +79,8 @@ LAUNCH_COUNTS: dict[str, int] = {
     "sha256": 0, "ecdsa_finish": 0, "affine_xy": 0, "muladd_n": 0,
     "fixedbase_blinded": 0, "gej_add": 0, "msm_table": 0,
     "msm_winreduce": 0, "msm_finish": 0, "affine_meta": 0, "inv_n": 0,
-    "fixedbase_public": 0, "gej_sum": 0}
+    "fixedbase_public": 0, "gej_sum": 0, "sha256_msg": 0, "rfc6979": 0,
+    "batch_digest": 0}
 
 
 def count_launch(name: str) -> None:

@@ -13,14 +13,23 @@ after every add and inside every rotate (the uint32 wrap-around of the
 reference).  All message lengths are static, so every hash is a fixed
 number of compressions.
 
-Route: on CUDA tensors all blocks of a hash go through the hand-written
-SHA-256 kernel in one launch (``ops/cuda_sha256.py``); on CPU tensors
-through :func:`compress_plain`, the plain version of that kernel.  A
-``set_compress`` override wins over both.
+Route: on CUDA tensors every hash is one launch of a hand-written
+SHA-256 kernel (``ops/cuda_sha256.py``): a byte or word message through
+``sha256_msg`` (padding and word assembly in the kernel, digest bytes
+out), the RFC6979 DRBG through ``rfc6979`` and the BIP-340 batch tree
+through ``batch_digest``, each whole; a bare :func:`compress` through
+``sha256_blocks``.  On CPU tensors the eager chains below run block by
+block on :func:`compress_plain`, and they are the kernels' plain versions
+(:func:`plain_route` runs them on CUDA tensors too).  A ``set_compress``
+override wins over every route: with one installed, every hash of every
+entry runs the eager chains, one compression through the override at a
+time.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from functools import lru_cache
 
 import torch
@@ -79,6 +88,29 @@ def set_compress(fn):
     return prev
 
 
+_ROUTE = threading.local()
+
+
+@contextmanager
+def plain_route():
+    """Run every hash in the body through the eager chains on the plain
+    compression (or an installed override), whatever the device: what the
+    kernels' plain versions run on the card."""
+    prev = getattr(_ROUTE, "plain", False)
+    _ROUTE.plain = True
+    try:
+        yield
+    finally:
+        _ROUTE.plain = prev
+
+
+def on_kernels(t: torch.Tensor) -> bool:
+    """Whether a hash of ``t`` goes through the fused kernels: a CUDA
+    tensor, no :func:`set_compress` override, outside :func:`plain_route`."""
+    return (t.is_cuda and _COMPRESS_OVERRIDE is None
+            and not getattr(_ROUTE, "plain", False))
+
+
 def _blocks_on_card(state: torch.Tensor, words: torch.Tensor):
     """All ``words.shape[-1] // 16`` blocks in one kernel launch."""
     batch = state.shape[:-1]
@@ -95,16 +127,14 @@ def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     :func:`compress_plain`."""
     if _COMPRESS_OVERRIDE is not None:
         return _COMPRESS_OVERRIDE(state, block)
-    if state.is_cuda:
+    if on_kernels(state):
         return _blocks_on_card(state, block)
     return compress_plain(state, block)
 
 
 def _compress_blocks(state: torch.Tensor, words: torch.Tensor):
-    """Absorb the padded block words ``[..., 16k]`` into ``state``: one
-    kernel launch on the card for all k blocks, else block by block."""
-    if _COMPRESS_OVERRIDE is None and state.is_cuda:
-        return _blocks_on_card(state, words)
+    """Absorb the padded block words ``[..., 16k]`` into ``state`` block by
+    block (the eager chains: the override, or the plain compression)."""
     for i in range(words.shape[-1] // 16):
         state = compress(state, words[..., 16 * i:16 * (i + 1)])
     return state
@@ -151,11 +181,28 @@ def _pad_bytes_to_blocks(msg: torch.Tensor,
         | b4[..., 3]
 
 
+def _digest_on_card(msg: torch.Tensor, init_state, consumed_bytes: int):
+    """One ``sha256_msg`` launch for ``[..., L]`` bytes -> ``[..., 32]``
+    digest bytes; ``init_state`` a tuple (a midstate, or None: the IV) or
+    a per-lane ``[..., 8]`` state."""
+    batch, L = msg.shape[:-1], msg.shape[-1]
+    flat = msg.reshape(-1, L)
+    if isinstance(init_state, torch.Tensor):
+        out = cuda_sha256.sha256_msg(flat, None, consumed_bytes,
+                                     init_state.reshape(-1, 8))
+    else:
+        out = cuda_sha256.sha256_msg(flat, init_state, consumed_bytes)
+    return out.reshape(*batch, 32)
+
+
 def sha256_words(words: torch.Tensor, init_state=None,
                  consumed_bytes: int = 0) -> torch.Tensor:
     """SHA-256 of a whole-word message ``[..., W]`` -> digest words
     ``[..., 8]``; ``init_state`` / ``consumed_bytes`` continue a
     midstate."""
+    if on_kernels(words):
+        return bytes32_to_words(_digest_on_card(
+            words_to_bytes(words), init_state, consumed_bytes))
     msg = _pad_words(words, words.shape[-1] * 4, consumed_bytes)
     state = _start(init_state, words.shape[:-1], words.device)
     return _compress_blocks(state, msg)
@@ -165,9 +212,21 @@ def sha256_bytes(msg: torch.Tensor, init_state=None,
                  consumed_bytes: int = 0) -> torch.Tensor:
     """SHA-256 over a byte tensor ``[..., L]`` (static L) -> ``[..., 8]``
     digest words."""
+    if on_kernels(msg):
+        return bytes32_to_words(_digest_on_card(msg, init_state,
+                                                consumed_bytes))
     words = _pad_bytes_to_blocks(msg, consumed_bytes)
     state = _start(init_state, msg.shape[:-1], msg.device)
     return _compress_blocks(state, words)
+
+
+def sha256_digest(msg: torch.Tensor, init_state=None,
+                  consumed_bytes: int = 0) -> torch.Tensor:
+    """:func:`sha256_bytes` as digest bytes ``[..., 32]`` uint8: on the
+    card the kernel's own output, no conversion."""
+    if on_kernels(msg):
+        return _digest_on_card(msg, init_state, consumed_bytes)
+    return words_to_bytes32(sha256_bytes(msg, init_state, consumed_bytes))
 
 
 @lru_cache(maxsize=32)
@@ -188,6 +247,12 @@ def tagged_hash_bytes(tag: str, msg: torch.Tensor) -> torch.Tensor:
     return sha256_bytes(msg, init_state=tag_midstate(tag), consumed_bytes=64)
 
 
+def tagged_digest(tag: str, msg: torch.Tensor) -> torch.Tensor:
+    """Tagged hash of a byte message ``[..., L]`` -> ``[..., 32]`` bytes."""
+    return sha256_digest(msg, init_state=tag_midstate(tag),
+                         consumed_bytes=64)
+
+
 def _hmac_states(key8: torch.Tensor):
     """The inner and outer HMAC states of a 32-byte key ``[..., 8]``:
     one compression each of the key block XOR ipad / opad."""
@@ -201,7 +266,8 @@ def _hmac_states(key8: torch.Tensor):
 def hmac_sha256(key8: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
     """HMAC-SHA256 with a 32-byte key (``[..., 8]`` words) over a
     whole-word message ``[..., W]`` -> ``[..., 8]`` (cf. hmac_sha256,
-    src/hash_impl.h:216).  On the card: four kernel launches."""
+    src/hash_impl.h:216).  On the card: four kernel launches (the key's
+    two pad states, the inner and the outer hash)."""
     inner, outer = _hmac_states(key8)
     ihash = sha256_words(msgs, init_state=inner, consumed_bytes=64)
     return sha256_words(ihash, init_state=outer, consumed_bytes=64)
@@ -222,10 +288,7 @@ class RFC6979:
     :meth:`generate32` three."""
 
     def __init__(self, keydata_words: torch.Tensor):
-        w = keydata_words.to(I64)
-        kb = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
-                          (w >> 8) & 0xFF, w & 0xFF], -1) \
-            .reshape(*w.shape[:-1], 4 * w.shape[-1]).to(torch.uint8)
+        kb = words_to_bytes(keydata_words.to(I64))
         batch = kb.shape[:-1]
         v = torch.full((*batch, 8), 0x01010101, dtype=I64, device=kb.device)
         k = torch.zeros_like(v)
@@ -258,15 +321,71 @@ class RFC6979:
         return out
 
 
-def bytes32_to_words(b: torch.Tensor) -> torch.Tensor:
-    """``[..., 32]`` uint8 -> ``[..., 8]`` big-endian int64 words."""
-    b4 = b.to(I64).reshape(*b.shape[:-1], 8, 4)
+def rfc6979_chain(keydata: torch.Tensor, rounds: int = 2) -> torch.Tensor:
+    """The first ``rounds`` candidates of the RFC6979 DRBG keyed with
+    ``keydata`` ``[B, 64]`` uint8 (seckey || msg32), as ``[rounds, B, 8]``
+    words: the eager HMAC chain, ten HMACs for two candidates (the plain
+    version of the ``rfc6979`` kernel)."""
+    drbg = RFC6979(bytes_to_words(keydata))
+    return torch.stack([drbg.generate32() for _ in range(rounds)], 0)
+
+
+def rfc6979(keydata: torch.Tensor, rounds: int = 2) -> torch.Tensor:
+    """:func:`rfc6979_chain`, on the card in one launch of the ``rfc6979``
+    kernel (every HMAC state in registers, no eager op)."""
+    if on_kernels(keydata):
+        return cuda_sha256.rfc6979(keydata, rounds)
+    return rfc6979_chain(keydata, rounds)
+
+
+BATCH_LEAF_TAG = "BIP0340/batch/leaf"
+BATCH_NODE_TAG = "BIP0340/batch/node"
+
+
+def batch_digest_tree(px32, msg32, sig64) -> torch.Tensor:
+    """The digest binding a BIP-340 batch, ``[32]`` uint8: tagged leaf
+    hashes of px || msg || sig (``[n, 32]``, ``[n, 32]``, ``[n, 64]``),
+    then a binary tree of node hashes, a zero node padding each odd level
+    (the plain version of the ``batch_digest`` kernel)."""
+    nodes = tagged_digest(BATCH_LEAF_TAG, torch.cat([px32, msg32, sig64],
+                                                    -1))
+    k = nodes.shape[0]
+    while k > 1:
+        if k % 2:
+            nodes = torch.cat([nodes, nodes.new_zeros((1, 32))], 0)
+            k += 1
+        nodes = tagged_digest(BATCH_NODE_TAG, nodes.reshape(k // 2, 64))
+        k //= 2
+    return nodes[0]
+
+
+def batch_digest(px32, msg32, sig64) -> torch.Tensor:
+    """:func:`batch_digest_tree`, on the card in one launch of the
+    ``batch_digest`` kernel (leaves, every level and the padding)."""
+    if on_kernels(px32):
+        return cuda_sha256.batch_digest(px32, msg32, sig64)
+    return batch_digest_tree(px32, msg32, sig64)
+
+
+def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """``[..., 4W]`` uint8 -> ``[..., W]`` big-endian int64 words."""
+    b4 = b.to(I64).reshape(*b.shape[:-1], -1, 4)
     return (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) \
         | b4[..., 3]
 
 
-def words_to_bytes32(w: torch.Tensor) -> torch.Tensor:
-    """``[..., 8]`` words -> ``[..., 32]`` uint8."""
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """``[..., W]`` words -> ``[..., 4W]`` uint8."""
     out = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
                        (w >> 8) & 0xFF, w & 0xFF], -1)
-    return out.reshape(*w.shape[:-1], 32).to(torch.uint8)
+    return out.reshape(*w.shape[:-1], 4 * w.shape[-1]).to(torch.uint8)
+
+
+def bytes32_to_words(b: torch.Tensor) -> torch.Tensor:
+    """``[..., 32]`` uint8 -> ``[..., 8]`` big-endian int64 words."""
+    return bytes_to_words(b)
+
+
+def words_to_bytes32(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 8]`` words -> ``[..., 32]`` uint8."""
+    return words_to_bytes(w)

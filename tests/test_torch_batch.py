@@ -22,7 +22,9 @@ Python integers.
   (``jax.disable_jit()``) on 13 lanes with an infinite lane and a P, -P
   pair, and ``msm._tree_reduce`` through it.
 * ``_batch_digest`` and ``_batch_randomizers`` against the JAX functions
-  and ``hashlib`` for n = 1, 3 and 8; ``batch_verify`` against
+  and ``hashlib`` for n = 1, 3 and 8, the ``batch_digest`` kernel's plain
+  version against the JAX ``_batch_digest`` under ``jax.disable_jit()``
+  at n = 3; ``batch_verify`` against
   ``oracle.schnorr_verify`` lane by lane: valid batches of 3 and 1, the
   two-lane cancellation forgery of tests/test_pallas_tpu.py, and a flipped
   s byte (the valid batches reach the comb's public gather entry alone,
@@ -57,6 +59,7 @@ from secp256k1_zkp_tpu_torch.modules import schnorrsig
 from secp256k1_zkp_tpu_torch.ops import _build, msm
 from secp256k1_zkp_tpu_torch.ops import cuda_group as TG
 from secp256k1_zkp_tpu_torch.ops import cuda_msm as TM
+from secp256k1_zkp_tpu_torch.ops import cuda_sha256 as TC
 from secp256k1_zkp_tpu_torch.ops import group as TGRP
 from secp256k1_zkp_tpu_torch.ops.limb import LB, kernel_rows
 from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
@@ -373,6 +376,13 @@ def _batch_randomizers_and_valid_batches_vs_jax_and_oracle():
                      static_argnums=(3, 4))(*jargs, None, n)
         assert np.asarray(jdig).tolist() == digest.tolist()
         assert np.asarray(jz.v).astype(np.int64).tolist() == zp.v.tolist()
+    # the batch_digest kernel's plain version against the JAX function run
+    # eagerly (n = 3: a padded level)
+    with jax.disable_jit():
+        jdig = jschnorr._batch_digest(
+            *(jnp.asarray(a[:3]) for a in (msgs, sigs, pxs)), 3)
+    assert np.asarray(jdig).tolist() == TC.batch_digest_ref(
+        *_port_args(pxs[:3], msgs[:3], sigs[:3])).tolist()
     # a caller's seed, n = 3
     jzs = jax.jit(jschnorr._batch_randomizers, static_argnums=4)(
         *(jnp.asarray(a[:3]) for a in (msgs, sigs, pxs)),

@@ -22,6 +22,7 @@ tests of the slice use; the launch counters must not move.
 """
 
 import ctypes
+import hashlib
 import re
 import subprocess
 from pathlib import Path
@@ -43,8 +44,11 @@ from secp256k1_zkp_tpu_torch.ops import cuda_gen as TGEN
 from secp256k1_zkp_tpu_torch.ops import cuda_group as TG
 from secp256k1_zkp_tpu_torch.ops import cuda_msm as TM
 from secp256k1_zkp_tpu_torch.ops import cuda_scalar as TS
+from secp256k1_zkp_tpu_torch.ops import cuda_sha256 as TC
+from secp256k1_zkp_tpu_torch.ops import sha256 as TH
 from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
 
+import oracle
 from test_torch_ops import ints, jcanon, jrows, rand, rows_np
 
 P, N = hc.P, hc.N
@@ -281,6 +285,12 @@ def _b0_harness(tmp_path):
     lib.b0_msm_table.argtypes = [vp, vp, vp, i32, vp, vp]
     lib.b0_msm_finish.argtypes = [vp, vp, vp, vp, i32, i32, vp]
     lib.b0_gej_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
+    u32 = ctypes.c_uint32
+    lib.b0_sha_msg.argtypes = [vp, i32, i32, vp, vp, u32, u32, i32, i32, vp]
+    lib.b0_rfc6979.argtypes = [vp, i32, vp, i32, i32, vp]
+    lib.b0_batch_digest.argtypes = [vp, vp, vp, i32, i32, vp, vp]
+    lib.b0_lift_x.argtypes = [vp, vp, vp, i32]
+    lib.b0_even_root.argtypes = [vp, vp, i32]
     return lib
 
 
@@ -586,6 +596,149 @@ def _check_b0_gej_sum(lib):
             assert _b0_point(out) == want, (len(pts), sms)
 
 
+def _be_bytes(words):
+    """uint32 digest words -> the digest bytes."""
+    return np.asarray(words, np.uint32).astype(">u4").tobytes()
+
+
+def _check_b0_sha_msg(lib):
+    """sha256.cu's sha256_msg (staging by the block's threads, padding in
+    the kernel, chunks of 256 bytes) against hashlib, oracle.tagged_hash
+    and the port's plain version, on messages of 0 to 300 bytes: from the
+    IV and from a tag's midstate, by whole words and by bytes, and from a
+    state a lane (an HMAC's inner hash); 7 lanes in blocks of 4 threads."""
+    rng = np.random.default_rng(16)
+    tag = "BIP0340/challenge"
+    mid = TH.tag_midstate(tag)
+    B, T = 7, 4
+    for L in (0, 1, 32, 55, 56, 63, 64, 97, 128, 256, 300):
+        msg = rng.integers(0, 256, (B, L), dtype=np.uint8)
+        for start, consumed in ((TC.IV, 0), (mid, 64)):
+            bits = (consumed + L) * 8
+            st0 = np.asarray(start, np.uint32)
+            plain = TC.sha256_msg_ref(torch.from_numpy(msg), start,
+                                      consumed)
+            for words in ((0, 1) if L % 4 == 0 else (0,)):
+                out = np.zeros((B, 8), np.uint32)
+                lib.b0_sha_msg(msg.ctypes.data, L, B, st0.ctypes.data, None,
+                               bits >> 32, bits & 0xFFFFFFFF, T, words,
+                               out.ctypes.data)
+                for j in range(B):
+                    want = (hashlib.sha256(bytes(msg[j])).digest()
+                            if consumed == 0 else
+                            oracle.tagged_hash(tag, bytes(msg[j])))
+                    assert _be_bytes(out[j]) == want, (L, consumed, words)
+                    assert bytes(plain[j].numpy()) == want
+    # a state a lane, 97 bytes after it (RFC6979's first inner hash)
+    lane = rng.integers(0, 2 ** 32, (B, 8), dtype=np.uint32)
+    msg = rng.integers(0, 256, (B, 97), dtype=np.uint8)
+    bits = (64 + 97) * 8
+    out = np.zeros((B, 8), np.uint32)
+    lib.b0_sha_msg(msg.ctypes.data, 97, B, None, lane.ctypes.data, 0, bits,
+                   T, 0, out.ctypes.data)
+    plain = TC.sha256_msg_ref(torch.from_numpy(msg), None, 64,
+                              torch.from_numpy(lane.astype(np.int64)))
+    assert [_be_bytes(o) for o in out] == [bytes(p.numpy()) for p in plain]
+    blocks = TH._pad_bytes_to_blocks(torch.from_numpy(msg), 64)
+    st = torch.from_numpy(lane.astype(np.int64))
+    for i in range(2):
+        st = TH.compress_plain(st, blocks[:, 16 * i:16 * (i + 1)])
+    assert out.astype(np.int64).tolist() == st.tolist()
+
+
+def _check_b0_rfc6979(lib):
+    """rfc6979's lane (csrc/sha256.cuh) against oracle.rfc6979_nonce and
+    the port's plain version, one to three candidates; keys 0, 1, n - 1
+    and random ones, 6 lanes in blocks of 4 threads."""
+    rng = np.random.default_rng(17)
+    B = 6
+    secs = [0, 1, N - 1] + [int.from_bytes(rng.bytes(32), "big") % N
+                            for _ in range(B - 3)]
+    sec = np.array([list(d.to_bytes(32, "big")) for d in secs], np.uint8)
+    msg = rng.integers(0, 256, (B, 32), dtype=np.uint8)
+    msg[1] = 0xFF
+    kd = np.ascontiguousarray(np.concatenate([sec, msg], 1))
+    k0 = np.asarray(TC.zero_key_states(), np.uint32)
+    for rounds in (1, 2, 3):
+        out = np.zeros((rounds, B, 8), np.uint32)
+        lib.b0_rfc6979(kd.ctypes.data, B, k0.ctypes.data, rounds, 4,
+                       out.ctypes.data)
+        plain = TC.rfc6979_ref(torch.from_numpy(kd), rounds)
+        assert out.astype(np.int64).tolist() == plain.tolist(), rounds
+        for j in range(B):
+            for c in range(rounds):
+                assert _be_bytes(out[c, j]) == oracle.rfc6979_nonce(
+                    bytes(sec[j]), bytes(msg[j]), counter=c), (j, c)
+
+
+def _host_batch_root(px, msg, sig):
+    nodes = [oracle.tagged_hash("BIP0340/batch/leaf",
+                                bytes(p) + bytes(m) + bytes(s))
+             for p, m, s in zip(px, msg, sig)]
+    while len(nodes) > 1:
+        if len(nodes) % 2:
+            nodes.append(bytes(32))
+        nodes = [oracle.tagged_hash("BIP0340/batch/node", a + b)
+                 for a, b in zip(nodes[::2], nodes[1::2])]
+    return nodes[0]
+
+
+def _check_b0_batch_digest(lib):
+    """batch_digest (a block's leaves and subtree, the last block's levels
+    over the blocks' roots) against hashlib and the port's plain version:
+    n = 1, 2, 3, 5, 255, 256, 257 and 1,061 in the kernel's blocks of 256
+    threads, and n = 5, 17 and 33 in blocks of 4 (three to five levels
+    over the roots, an odd count at every level)."""
+    rng = np.random.default_rng(18)
+    most = 1061
+    px = rng.integers(0, 256, (most, 32), dtype=np.uint8)
+    msg = rng.integers(0, 256, (most, 32), dtype=np.uint8)
+    sig = rng.integers(0, 256, (most, 64), dtype=np.uint8)
+    mids = np.asarray(TC._batch_midstates(), np.uint32)
+    for n, T in ((1, TC.BD_THREADS), (2, TC.BD_THREADS), (3, TC.BD_THREADS),
+                 (5, TC.BD_THREADS), (255, TC.BD_THREADS),
+                 (256, TC.BD_THREADS), (257, TC.BD_THREADS),
+                 (most, TC.BD_THREADS), (5, 4), (17, 4), (33, 4)):
+        a, b, c = (np.ascontiguousarray(v[:n]) for v in (px, msg, sig))
+        out = np.zeros(8, np.uint32)
+        lib.b0_batch_digest(a.ctypes.data, b.ctypes.data, c.ctypes.data, n,
+                            T, mids.ctypes.data, out.ctypes.data)
+        want = _host_batch_root(a, b, c)
+        assert _be_bytes(out) == want, (n, T)
+        if T == TC.BD_THREADS:
+            plain = TC.batch_digest_ref(*map(torch.from_numpy, (a, b, c)))
+            assert bytes(plain.numpy()) == want, n
+
+
+def _check_b0_lift_x(lib):
+    """lift_x.cu's lane on the inlined sqrt chain against Python ints and
+    the plain version: x with a square (curve points, G), without one,
+    x >= p as given (p, p + 1, 2^256 - 1), 0; its parity select on y = 0,
+    1, p - 1 and random canonical y."""
+    rng = np.random.default_rng(19)
+    xs = [hc.mul(k)[0] for k in rand(rng, N, 5)] + rand(rng, P, 6)
+    xs += [0, 1, hc.GX, P - 1, P, P + 1, 2 ** 256 - 1]
+    n = len(xs)
+    x = rows_np(xs).astype(np.uint32)
+    y = np.zeros_like(x)
+    ok = np.zeros(n, np.uint32)
+    lib.b0_lift_x(x.ctypes.data, y.ctypes.data, ok.ctypes.data, n)
+    py, pok = TF.lift_x_ref(torch.from_numpy(x.astype(np.int64)))
+    assert y.astype(np.int64).tolist() == py.tolist()
+    assert ok.astype(bool).tolist() == pok.tolist()
+    assert {bool(v) for v in ok} == {True, False}
+    for j, v in enumerate(ints(y)):
+        y2 = (xs[j] ** 3 + 7) % P
+        r = pow(y2, (P + 1) // 4, P)
+        assert v == (P - r if r & 1 else r) and bool(ok[j]) == (r * r % P
+                                                               == y2)
+    ys = [0, 1, 2, P - 1, P - 2] + rand(rng, P, 5)
+    r = np.zeros((len(ys), 8), np.uint32)
+    yw = _words(ys)
+    lib.b0_even_root(yw.ctypes.data, r.ctypes.data, len(ys))
+    assert _from_words(r) == [P - v if v & 1 else v for v in ys]
+
+
 def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
     modules and the JAX package; and the B0 field and group core of
@@ -594,7 +747,9 @@ def test_cuda_constants_header(tmp_path):
     carry-chain primitives (csrc/common.cuh) and the chains built on them,
     and with them the comb's T-thread sum (csrc/comb.cuh), msm_table's
     lane (csrc/msm.cuh), msm_finish's block and gej_sum's blocks (the
-    folds and trees of csrc/group.cuh); the PTX forms are held against the
+    folds and trees of csrc/group.cuh), the SHA-256 kernels' staging,
+    padding, RFC6979 lane and batch tree (csrc/sha256.cuh) and lift_x's
+    lane on the inlined sqrt chain; the PTX forms are held against the
     plain PyTorch versions on the card by chip_smoke.py."""
     lib = _b0_harness(tmp_path)
     _check_b0_field(lib)
@@ -603,6 +758,10 @@ def test_cuda_constants_header(tmp_path):
     _check_b0_msm_table(lib)
     _check_b0_msm_finish(lib)
     _check_b0_gej_sum(lib)
+    _check_b0_sha_msg(lib)
+    _check_b0_rfc6979(lib)
+    _check_b0_batch_digest(lib)
+    _check_b0_lift_x(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

@@ -152,6 +152,45 @@ def test_set_compress_routes_every_hash():
     TH.tagged_hash_bytes("BIP0340/challenge", msg)
     assert len(calls) == 2                   # reset: the spy is gone
 
+    # the fused entries (one kernel launch each on a card) run their eager
+    # chains under an override, every compression through it: RFC6979
+    # (ten HMACs, 42 compressions for two candidates), the batch digest
+    # (3 leaves: the leaf blocks, two levels of two blocks), the digest
+    # bytes and the plain versions of the kernels
+    kd = torch.arange(128, dtype=torch.uint8).reshape(2, 64)
+    sigs = torch.arange(192, dtype=torch.uint8).reshape(3, 64)
+    keys, msgs = sigs[:, :32], sigs[:, 32:]
+    want_nonce = TH.rfc6979(kd)
+    want_root = TH.batch_digest(keys, msgs, sigs)
+    want_digest = TH.tagged_digest("BIP0340/challenge", msg)
+    calls.clear()
+    prev = TH.set_compress(spy)
+    try:
+        assert torch.equal(TH.rfc6979(kd), want_nonce)
+        assert len(calls) == 42 and set(calls) == {(2, 16)}
+        calls.clear()
+        assert torch.equal(TC.rfc6979_ref(kd), want_nonce)
+        assert len(calls) == 42
+        calls.clear()
+        assert torch.equal(TH.batch_digest(keys, msgs, sigs), want_root)
+        assert calls == [(3, 16)] * 3 + [(2, 16)] * 2 + [(1, 16)] * 2
+        calls.clear()
+        assert torch.equal(TC.batch_digest_ref(keys, msgs, sigs), want_root)
+        assert len(calls) == 7
+        calls.clear()
+        assert torch.equal(TH.tagged_digest("BIP0340/challenge", msg),
+                           want_digest)
+        assert torch.equal(TC.sha256_msg_ref(
+            msg, TH.tag_midstate("BIP0340/challenge"), 64), want_digest)
+        assert len(calls) == 4
+        with TH.plain_route():               # the override still wins
+            TH.sha256_bytes(msg)
+        assert len(calls) == 6
+    finally:
+        assert TH.set_compress(prev) is spy
+    assert torch.equal(TH.words_to_bytes32(plain), want_digest)
+    assert not TH.on_kernels(msg)            # a CPU tensor: never
+
     # through a Context, as tests/test_context.py does for the JAX
     # package: the spy is installed after its known-answer test ...
     calls.clear()

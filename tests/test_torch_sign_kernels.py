@@ -15,7 +15,10 @@ against Python integers, and the hashes the sign paths stand on.
   ``Context.randomize`` carried across by ``convert.blind_from_jax``.
 * ``hmac_sha256``, ``hmac_sha256_bytes`` and ``RFC6979`` against the JAX
   package's ``ops/sha256.py`` and ``oracle.hmac_sha256`` /
-  ``oracle.rfc6979_nonce``.
+  ``oracle.rfc6979_nonce``; the ``rfc6979`` kernel's plain version (and
+  the entries that reach it on the CPU, ``ecdsa.rfc6979_nonce_ref``) on
+  seckey || msg bytes against the JAX ``RFC6979`` run under
+  ``jax.disable_jit()``, one to three candidates.
 
 Tolerance: 0 (integers, limbs, bytes).  On CPU tensors every wrapper takes
 its plain version; the launch counters must not move.  The C entry points
@@ -35,7 +38,9 @@ from secp256k1_zkp_tpu import context as jcontext
 from secp256k1_zkp_tpu.ops import pallas_gen as JGEN
 from secp256k1_zkp_tpu.ops import sha256 as JH
 from secp256k1_zkp_tpu_torch.ops import _build
+from secp256k1_zkp_tpu_torch.modules import ecdsa
 from secp256k1_zkp_tpu_torch.ops import cuda_gen as TGEN
+from secp256k1_zkp_tpu_torch.ops import cuda_sha256 as TC
 from secp256k1_zkp_tpu_torch.ops import sha256 as TH
 from secp256k1_zkp_tpu_torch.utils import convert
 from secp256k1_zkp_tpu_torch.utils import hostcurve as hc
@@ -209,3 +214,18 @@ def test_hmac_and_rfc6979_vs_jax_and_oracle():
         for c, o in enumerate(outs):
             assert bytes(TH.words_to_bytes32(o[j]).tolist()) == \
                 oracle.rfc6979_nonce(bytes(sec[j]), bytes(msg[j]), counter=c)
+    # the rfc6979 kernel's plain version and the entries on it: seckey ||
+    # msg bytes in, the same candidates (the JAX DRBG eagerly)
+    kd_t = torch.from_numpy(np.ascontiguousarray(kb))
+    with jax.disable_jit():
+        jd = JH.RFC6979(jnp.asarray(kw.numpy().astype(np.uint32)))
+        jouts = [np.asarray(jd.generate32()).astype(np.int64).tolist()
+                 for _ in range(3)]
+    for rounds in (1, 2, 3):
+        for got in (TC.rfc6979_ref(kd_t, rounds), TH.rfc6979(kd_t, rounds),
+                    TC.rfc6979(kd_t, rounds)):
+            assert got.shape == (rounds, B, 8)
+            assert got.tolist() == jouts[:rounds]
+    assert ecdsa.rfc6979_nonce_ref(torch.from_numpy(msg),
+                                   torch.from_numpy(sec)).tolist() == \
+        jouts[:2]

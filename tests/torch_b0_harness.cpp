@@ -16,12 +16,21 @@
 // finish's ladder of pair doublings, with group.cuh's shuffles,
 // jp_warp_sum and jp_block_sum written out as loops over an array of
 // threads in the same order.
+//
+// And the SHA-256 kernels of csrc/sha256.cu on csrc/sha256.cuh: sha256_msg
+// (the staging of a block's rows through shared memory by its threads, the
+// in-kernel padding, chunk by chunk), rfc6979's lane, and batch_digest (a
+// block's leaves and its subtree, the blocks' roots through the scratch
+// and the last block's levels); and lift_x.cu's lane on the inlined sqrt
+// chain (fe_pow_sqrt_to of fe.cuh), compiled from the kernel's own file.
 #include <string.h>
 
 #include <vector>
 
 #include "comb.cuh"
+#include "lift_x.cu"
 #include "msm.cuh"
+#include "sha256.cuh"
 
 static fe ld(const uint32_t* p) {
     fe r;
@@ -217,6 +226,150 @@ void b0_gej_sum(const uint32_t* x, const uint32_t* y, const uint32_t* z,
         jp_fold_cols(v[t], qx, qy, qz, qinf, nb, t, nb, T);
     block_tree(v.data(), T, T < nb ? T : nb);
     st_canon(out, v[0]);
+}
+
+// sha256.cu's sha256_msg on B rows of L bytes (msg), blocks of T threads:
+// start state st0 or lane_st [B, 8] (null: st0); out [B, 8] digest words.
+// The shared rows start as junk: the padding must not read past L.
+void b0_sha_msg(const uint8_t* msg, int L, int B, const uint32_t* st0,
+                const uint32_t* lane_st, uint32_t len_hi, uint32_t len_lo,
+                int T, int words, uint32_t* out) {
+    const int S = sha_row_words(L);
+    std::vector<uint32_t> sm(T * S, 0xA5C3E1F7u);
+    const int nblk = sha_blocks_of(L);
+    const int nchunk = (64 * nblk + SECP_SHA_CHUNK - 1) / SECP_SHA_CHUNK;
+    for (int first = 0; first < B; first += T) {
+        const int rows = T < B - first ? T : B - first;
+        std::vector<uint32_t> st(8 * rows);
+        for (int t = 0; t < rows; ++t)
+            for (int i = 0; i < 8; ++i)
+                st[8 * t + i] = lane_st ? lane_st[8 * (first + t) + i]
+                                        : st0[i];
+        for (int k = 0; k < nchunk; ++k) {
+            const int c0 = k * SECP_SHA_CHUNK;
+            const int clen = SECP_SHA_CHUNK < L - c0 ? SECP_SHA_CHUNK
+                                                     : L - c0;
+            for (int t = 0; t < T; ++t)
+                sha_stage(sm.data(), S, msg + (size_t)first * L, L, c0, clen,
+                          rows, words != 0, t, T);
+            for (int t = 0; t < rows; ++t) {
+                uint32_t s8[8];
+                memcpy(s8, &st[8 * t], sizeof(s8));
+                sha_msg_chunk(s8, sm.data() + t * S, L, k, nblk, len_hi,
+                              len_lo);
+                memcpy(&st[8 * t], s8, sizeof(s8));
+            }
+        }
+        memcpy(out + 8 * first, st.data(), sizeof(uint32_t) * 8 * rows);
+    }
+}
+
+// sha256.cu's rfc6979 on B lanes of kd [B, 64] bytes, blocks of T
+// threads; k0 [16] the zero key's pad states; out [rounds, B, 8] words
+void b0_rfc6979(const uint8_t* kd, int B, const uint32_t* k0, int rounds,
+                int T, uint32_t* out) {
+    sha_st i0, o0;
+    for (int i = 0; i < 8; ++i) {
+        i0.h[i] = k0[i];
+        o0.h[i] = k0[8 + i];
+    }
+    std::vector<uint32_t> sm(T * 17);
+    for (int first = 0; first < B; first += T) {
+        const int rows = T < B - first ? T : B - first;
+        for (int t = 0; t < T; ++t)
+            sha_stage(sm.data(), 17, kd + (size_t)first * 64, 64, 0, 64,
+                      rows, true, t, T);
+        for (int t = 0; t < rows; ++t) {
+            uint32_t w[16];
+            for (int i = 0; i < 16; ++i) w[i] = bswap32(sm[17 * t + i]);
+            const int lane = first + t;
+            rfc6979_lane(w, i0, o0, rounds,
+                         [&](int r, const uint32_t (&v)[8]) {
+                memcpy(out + ((size_t)r * B + lane) * 8, v, sizeof(v));
+            });
+        }
+    }
+}
+
+// sha256.cu's batch_digest on n leaves (px, msg [n, 32], sig [n, 64]) in
+// blocks of T threads (a power of two; the kernel's is 256): mids [16] the
+// leaf and node midstates; out [8] the root's words
+void b0_batch_digest(const uint8_t* px, const uint8_t* msg,
+                     const uint8_t* sig, int n, int T, const uint32_t* mids,
+                     uint32_t* out) {
+    sha_st leaf, node;
+    for (int i = 0; i < 8; ++i) {
+        leaf.h[i] = mids[i];
+        node.h[i] = mids[8 + i];
+    }
+    int levels = 0;
+    while ((1 << levels) < T) ++levels;
+    const int row = 33, nb = (n + T - 1) / T;
+    std::vector<uint32_t> part(8 * nb + 8 * ((nb + 1) / 2));
+    std::vector<uint32_t> sm(T * row), h(8 * T);
+    for (int blk = 0; blk < nb; ++blk) {
+        const int first = blk * T, rows = T < n - first ? T : n - first;
+        for (int t = 0; t < T; ++t) {
+            sha_stage(sm.data(), row, px + (size_t)first * 32, 32, 0, 32,
+                      rows, true, t, T);
+            sha_stage(sm.data() + 8, row, msg + (size_t)first * 32, 32, 0,
+                      32, rows, true, t, T);
+            sha_stage(sm.data() + 16, row, sig + (size_t)first * 64, 64, 0,
+                      64, rows, true, t, T);
+        }
+        for (int t = 0; t < rows; ++t) {
+            uint32_t d[8];
+            bd_leaf(d, sm.data() + row * t, leaf);
+            memcpy(&h[8 * t], d, sizeof(d));
+        }
+        for (int t = 0; t < rows; ++t)
+            memcpy(&sm[9 * t], &h[8 * t], 8 * sizeof(uint32_t));
+        int cnt = rows;
+        for (int lvl = 0; nb == 1 ? cnt > 1 : lvl < levels; ++lvl) {
+            const int half = (cnt + 1) >> 1;
+            for (int t = 0; t < half; ++t) {     // every read, then writes
+                uint32_t d[8];
+                bd_pair(d, sm.data(), 9, cnt, t, node);
+                memcpy(&h[8 * t], d, sizeof(d));
+            }
+            for (int t = 0; t < half; ++t)
+                memcpy(&sm[9 * t], &h[8 * t], 8 * sizeof(uint32_t));
+            cnt = half;
+        }
+        if (nb == 1) {
+            memcpy(out, sm.data(), 8 * sizeof(uint32_t));
+            return;
+        }
+        memcpy(&part[8 * blk], sm.data(), 8 * sizeof(uint32_t));
+    }
+    // the last block: the roots a level at a time between two buffers,
+    // thread t taking the nodes t, t + T, ...
+    uint32_t *src = part.data(), *dst = part.data() + 8 * nb;
+    int cnt = nb;
+    while (cnt > 1) {
+        const int half = (cnt + 1) >> 1;
+        for (int t = 0; t < T; ++t)
+            for (int i = t; i < half; i += T) {
+                uint32_t d[8];
+                bd_pair<true>(d, src, 8, cnt, i, node);
+                memcpy(dst + 8 * i, d, sizeof(d));
+            }
+        uint32_t* tmp = src;
+        src = dst;
+        dst = tmp;
+        cnt = half;
+    }
+    memcpy(out, src, 8 * sizeof(uint32_t));
+}
+
+// lift_x.cu's lane on x [16, n] limb-major: y [16, n], ok [n]; and its
+// parity select alone on canonical y [n] (8 words each): r [n]
+void b0_lift_x(const uint32_t* x, uint32_t* y, uint32_t* ok, int n) {
+    for (int lane = 0; lane < n; ++lane) lift_x_lane(x, y, ok, n, lane);
+}
+
+void b0_even_root(const uint32_t* y, uint32_t* r, int n) {
+    for (int i = 0; i < n; ++i) st(r + 8 * i, lift_x_even(ld(y + 8 * i)));
 }
 
 }
