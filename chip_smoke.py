@@ -59,8 +59,9 @@ and stores.  ``bound_ms`` stays the column that ranks the kernels.
 
 Phase ``build`` fails if a redesigned kernel (``STACK_FREE``: B3, B13,
 the comb's kernels, ``msm_table_kernel``, ``msm_finish_kernel``,
-``gej_sum_kernel``, ``gej_add_kernel``, ``lift_x_kernel`` and the three
-new SHA-256 kernels) reports a stack or a spill in
+``gej_sum_kernel``, ``gej_add_kernel``, ``lift_x_kernel``, the three
+new SHA-256 kernels, ``affine_xy_kernel`` and ``affine_meta_kernel``)
+reports a stack or a spill in
 ``ptxas -v``, or if the comb's secret row scan spends more than about one
 instruction (LOP3 or SEL) a word on its selects (``sass["scan"]``);
 phase ``timing`` gives the warps per SM of their launches
@@ -68,7 +69,10 @@ phase ``timing`` gives the warps per SM of their launches
 ``msm_winreduce``'s lane chunks (nblk) with the ``msm_finish`` that
 follows, at 16,384, 262,144 and 2^20 points, and a sweep of the comb's
 threads a lane (T = 1, 2, 4, 8; each T's points checked) at both sizes
-beside the T the wrapper's rule picks.
+beside the T the wrapper's rule picks, and a sweep of the affine
+conversions' lanes a thread (K = 1, 2, 4, 8, 16, one inverse per K lanes;
+each K's outputs checked) at both sizes beside the K of
+``cuda_field.affine_group``.
 
 ``msm_finish`` and ``gej_sum`` are bound by latency: a chain of additions
 in sequence that no design can shorten.  Beside ``bound_ms`` they carry
@@ -119,7 +123,19 @@ unblinded one so that each shows its launches.
 ``affine_meta`` is held on the commit pipeline's jacobian results with
 z = 0, the weak z = p + 1, the weak zero z = p and y = 0 on lanes 0-3, and
 on the generator serializer's (x, y, 1); ``inv_n`` on the r of a signed
-batch with 0, 1, n - 1, n + 2 and 2^256 - 1 on lanes 0-4.
+batch with 0, 1, n - 1, n + 2 and 2^256 - 1 on lanes 0-4.  Both affine
+conversions (K lanes a thread, ``csrc/affine.cuh``) are also held on an
+edge set cut from the commit path's lanes to a ragged 262,109
+(``affine_edge_set``: z = 0 at the first, a middle and the last slot of
+one thread's group, a group all at z = 0, z = p and p + 1, y = 0) at the
+wrapper's K and at K = 1, 2, 3 and 8.  ``affine_meta`` reads y's
+character by a Jacobi symbol with a capped trip count; the lanes it left
+undecided (they take the square-root chain) are counted over the checks
+and over the main paths (``jacobi_undecided``).  Beside ``bound_ms`` both
+carry ``bound_int_ms`` and ``bound_lat_ms``: one lane's chain, an inverse,
+a squaring and three multiplies (and, for ``affine_meta``, a Jacobi
+symbol), by the latency probe's ``lat_inv_ms``, ``lat_jacobi_ms``,
+``lat_sqr_ms`` and ``lat_mul_ms``.
 
 The MSM engine's bounds count this run's data: ``msm_winreduce`` one mixed
 add per nonzero digit of a finite point (zero digits and infinite points
@@ -176,6 +192,12 @@ ADD_JAC = 6 * SQR + 11 * MUL      # complete jacobian add
 # safegcd: 20 batches of (30 divsteps of ~13 integer operations, counted as
 # 13/2 multiply-adds, and 90 wide multiplies in the two limb updates)
 MODINV = 20 * (30 * 13 // 2 + 90)
+# the Jacobi symbol: the same divsteps and the f, g half of the limb updates
+JACOBI = 20 * (30 * 13 // 2 + 45)
+# the affine conversion's least work a lane: the inverse by Montgomery's
+# trick over 32 lanes (3 multiplies and 1/32 of one inverse), Z^-2, Z^-3,
+# x and y
+AFFINE = MODINV / 32 + 3 * MUL + SQR + 3 * MUL
 SC_MUL = 64 + 3 * 40              # 8x8 words + three folds by the 129-bit red
 # GLV split: k*g1, k*g2 (8x8 each), c1*(-b1) (4x4), c2*(-b2) (4x8), their
 # two reductions and the modular multiply by lambda
@@ -205,8 +227,7 @@ OPS = {
     "sha256": SHA_BLOCK,          # per block
     # the inverse of Z, Z^-2, Z^-3, x and y; the inverse of k, r*d, k^-1*u
     "ecdsa_finish": 2 * MODINV + SQR + 3 * MUL + 2 * SC_MUL,
-    # the inverse of Z, Z^-2, Z^-3, x and y
-    "affine_xy": MODINV + SQR + 3 * MUL,
+    "affine_xy": AFFINE,
     # e*d, and the negation and the sum (two 8-word carry chains)
     "muladd_n": SC_MUL + 2 * 8,
     # the 37 rows and the blinding point, one mixed add each
@@ -226,10 +247,8 @@ OPS = {
     # per doubling of the one accumulator (msm_bound: 4(nwin - 1) of them,
     # plus one ADD_JAC per partial)
     "msm_finish": DOUBLE,
-    # the affine conversion (inverse, Z^-2, Z^-3, x, y), Y*Z^3 (a square
-    # and two multiplies), the sqrt chain (253 S + 13 M) and the check r^2
-    "affine_meta": (MODINV + SQR + 3 * MUL + SQR + 2 * MUL
-                    + 253 * SQR + 13 * MUL + SQR),
+    # the affine conversion and y's character, a Jacobi symbol
+    "affine_meta": AFFINE + JACOBI,
     "inv_n": MODINV,
     # the comb's gather entry for public scalars: the same 37 mixed adds
     "fixedbase_public": 37 * ADD_AFF,
@@ -333,7 +352,9 @@ KERNEL_FUNCS = {"ecmult_glv": "ecmult_glv_kernel",
                 "lift_x": "lift_x_kernel",
                 "sha256_msg": "sha256_msg_kernel",
                 "rfc6979": "rfc6979_kernel",
-                "batch_digest": "batch_digest_kernel"}
+                "batch_digest": "batch_digest_kernel",
+                "affine_xy": "affine_xy_kernel",
+                "affine_meta": "affine_meta_kernel"}
 STACK_FREE = tuple(KERNEL_FUNCS.values())
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_public", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256_msg", "lift_x", "glv_only", "fixedbase_public",
@@ -355,6 +376,11 @@ COMB_KERNELS = {"fixedbase_digits": (cuda_gen.COMB_SCAN, False),
                 "fixedbase_public": (cuda_gen.COMB_GATHER, False)}
 MSM_KERNELS = ("msm_table", "msm_winreduce", "msm_finish")
 COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
+# the affine conversions' lanes a thread: the edge set's lanes (ragged for
+# every K > 1 below), the K it runs at beside the wrapper's, the K swept
+AFFINE_EDGE_LANES = 262144 - 35
+AFFINE_EDGE_GROUPS = (1, 2, 3, 8)
+AFFINE_SWEEP = (1, 2, 4, 8, 16)
 # gej_sum's edge sets: these lane counts, and two lanes P, -P
 SUM_EDGE_LANES = (1, 2, 3, 65, 1024 + 37, 262144)
 MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
@@ -669,9 +695,10 @@ def _log2_ceil(n: int) -> int:
 def latency_ms(lib, dev) -> dict:
     """ms of one operation in a dependent chain on one thread
     (``secp_latency_probe``, the inlined core): a doubling, a complete
-    add, a doubling by a pair of threads, a field squaring and a field
-    multiply.  The slope of CUDA-event times of chains of 256 and 2,048,
-    from G."""
+    add, a doubling by a pair of threads, a field squaring, a field
+    multiply, a safegcd inverse and a Jacobi symbol (of G's x and of it
+    with bit 0 flipped).  The slope of CUDA-event times of chains of 256
+    and 2,048, from G."""
     io = torch.tensor([w - (1 << 32) if w >= 1 << 31 else w for c in (
         hc.GX, hc.GY, 1) for w in ((c >> (32 * i)) & 0xFFFFFFFF
                                    for i in range(8))] + [0],
@@ -679,7 +706,8 @@ def latency_ms(lib, dev) -> dict:
     out = {}
     for op, key in ((0, "lat_double_ms"), (1, "lat_add_ms"),
                     (2, "lat_pair_double_ms"), (3, "lat_sqr_ms"),
-                    (4, "lat_mul_ms")):
+                    (4, "lat_mul_ms"), (5, "lat_inv_ms"),
+                    (6, "lat_jacobi_ms")):
         def chain(n):
             _build.check(lib.secp_latency_probe(io.data_ptr(), op, n,
                                                 _build.stream_ptr()),
@@ -691,7 +719,11 @@ def latency_ms(lib, dev) -> dict:
 
 def bound_lat_ms(name: str, t: dict, lat: dict) -> float:
     """The least time of the chain of additions in sequence that ``name``
-    must run on ``t`` (module docstring), priced by :func:`latency_ms`."""
+    must run on ``t`` (module docstring), priced by :func:`latency_ms`;
+    for the affine conversions one lane's chain."""
+    if name in ("affine_xy", "affine_meta"):
+        chain = lat["lat_inv_ms"] + lat["lat_sqr_ms"] + 3 * lat["lat_mul_ms"]
+        return chain + (lat["lat_jacobi_ms"] if name == "affine_meta" else 0)
     if name == "msm_finish":
         nwin = t["nwin"]
         nblk = t["x"].shape[1] // nwin
@@ -1684,6 +1716,28 @@ def finish_edge_sets(f128, f256):
                 single, nwin=32, inf=torch.ones_like(single["inf"])))]
 
 
+def affine_edge_set(R, group: int) -> dict:
+    """The affine conversions' operands for one K: the jacobian lanes R
+    cut to AFFINE_EDGE_LANES, with z = 0 at the first, a middle and the
+    last slot of thread 5's group (its lanes 5, 5 + S, ... for S =
+    ceil(B / K) threads), thread 7's whole group at z = 0, z = p on lane 9
+    and p + 1 in thread 9's next slot (lane 10 for K = 1), y = 0 on lane
+    11."""
+    x, y, z = (c[:, :AFFINE_EDGE_LANES].contiguous() for c in R)
+    lanes = x.shape[1]
+    S = -(-lanes // group)
+    col = {v: torch.tensor(_limbs(v), dtype=torch.int32, device=x.device)
+           for v in (0, hc.P, hc.P + 1)}
+    for slot in (0, group // 2, group - 1):
+        z[:, 5 + slot * S] = col[0]
+    for lane in range(7, lanes, S):
+        z[:, lane] = col[0]
+    z[:, 9] = col[hc.P]
+    z[:, 9 + S if 9 + S < lanes else 10] = col[hc.P + 1]
+    y[:, 11] = col[0]
+    return dict(R=(x, y, z), group=group)
+
+
 def sum_edge_sets(x, y, z, inf):
     """gej_sum's edge sets from a tally operand of 262,144 lanes: the first
     B lanes for each of SUM_EDGE_LANES, with lane 1 = lane 0 (P + P),
@@ -1793,8 +1847,9 @@ def run_pair(name, t, use_ref: bool):
              else cuda_gen.ecdsa_sign_finish)
         return f(*t["gjac"], t["k"], t["m"], t["d"])
     if name == "affine_xy":
-        f = cuda_gen.affine_xy_ref if use_ref else cuda_gen.affine_xy
-        return f(*t["R"])
+        if use_ref:
+            return cuda_gen.affine_xy_ref(*t["R"])
+        return cuda_gen.affine_xy(*t["R"], group=t.get("group"))
     if name == "muladd_n":
         f = cuda_gen.muladd_n_ref if use_ref else cuda_gen.muladd_n
         return (f(t["k"], t["e"], t["d"], t["neg"]),)
@@ -1818,8 +1873,9 @@ def run_pair(name, t, use_ref: bool):
         f = cuda_group.gej_sum_ref if use_ref else cuda_group.gej_sum
         return f(t["x"], t["y"], t["z"], t["inf"])
     if name == "affine_meta":
-        f = cuda_field.affine_meta_ref if use_ref else cuda_field.affine_meta
-        return f(*t["R"])
+        if use_ref:
+            return cuda_field.affine_meta_ref(*t["R"])
+        return cuda_field.affine_meta(*t["R"], group=t.get("group"))
     if name == "inv_n":
         f = cuda_scalar.inv_n_ref if use_ref else cuda_scalar.inv_n
         return (f(t["x"]),)
@@ -1845,7 +1901,7 @@ def comb_digits(name, t):
 
 def comb_team(name, gdigs):
     """The threads a lane the comb's wrapper takes for ``gdigs``."""
-    return cuda_gen.comb_team(gdigs.shape[1], cuda_gen._sm_count(
+    return cuda_gen.comb_team(gdigs.shape[1], _build.sm_count(
         str(gdigs.device)), COMB_KERNELS[name][0])
 
 
@@ -1938,6 +1994,7 @@ def main() -> int:
     # Schnorr path); mulmod_chain and sha256 also on the selftest's own
     # operands, and mulmod_chain as a micro-benchmark at the verify batches
     t0 = time.time()
+    cuda_field.jacobi_undecided(dev, reset=True)
     base = make_distinct(distinct, args.seed)
     sbase = make_schnorr_distinct(distinct, args.seed)
     batches = {n: make_batch(base, n) for n in (*sizes, ragged)}
@@ -2148,6 +2205,25 @@ def main() -> int:
             elif n in sizes:
                 results[name][f"plain_ms_{n}"] = plain_ms
         del seen
+    # the affine conversions' thread groups (cuda_field.affine_group): the
+    # edge set at the wrapper's K and at K = 1, 2, 3 and 8
+    sms = _build.sm_count(str(dev))
+    chosen = cuda_field.affine_group(AFFINE_EDGE_LANES, sms)
+    for group in sorted({chosen, *AFFINE_EDGE_GROUPS}):
+        t = affine_edge_set(ptensors[sizes[1]]["R"], group)
+        for name in ("affine_xy", "affine_meta"):
+            err, plain_ms = compare(name, t)
+            record(name, f"{AFFINE_EDGE_LANES} lanes, edge set, K = {group}"
+                   + (" (the wrapper's)" if group == chosen else ""), err,
+                   plain_ms)
+    for name in ("affine_xy", "affine_meta"):
+        results[name].update({f"group_{n}": cuda_field.affine_group(n, sms)
+                              for n in (*sizes, ragged)})
+    undecided = cuda_field.jacobi_undecided(dev, reset=True)
+    results["affine_meta"]["jacobi_undecided_checks"] = undecided
+    emit("kernel_check", name="affine_meta", jacobi_undecided=undecided,
+         groups={n: cuda_field.affine_group(n, sms)
+                 for n in (*sizes, ragged, AFFINE_EDGE_LANES)})
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -2409,6 +2485,9 @@ def main() -> int:
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
     if idle:
         raise SystemExit(f"main path never launched: {idle}")
+    undecided = cuda_field.jacobi_undecided(dev, reset=True)
+    results["affine_meta"]["jacobi_undecided_main_path"] = undecided
+    emit("main_path", name="affine_meta", jacobi_undecided=undecided)
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions on "
@@ -2618,6 +2697,39 @@ def main() -> int:
             emit("timing", name=name + "_teams", lanes=n, warps_per_sm=warps,
                  ms_by_team=by_team, chosen=chosen,
                  chosen_within_10pct=by_team[chosen] <= 1.1 * best)
+    # the affine conversions: their warps an SM, integer-rate and latency
+    # bounds, and the lanes a thread (K) swept at both sizes on their
+    # main-path operands, each K's outputs held against those of the K the
+    # wrapper picks (held against the plain version in phase 3), 15 runs
+    # each
+    for name, tsets, warps in (
+            ("affine_xy", sign_sets["affine_xy"], lib.secp_affine_xy_warps()),
+            ("affine_meta", ptensors, lib.secp_affine_meta_warps())):
+        res = results[name]
+        res["warps_per_sm"] = warps
+        res["bound_lat_ms"] = bound_lat_ms(name, {}, lat)
+        for n in sizes:
+            t = tsets[n]
+            want = run_pair(name, t, False)
+
+            def timed(group):
+                tk = dict(t, group=group)
+                got = run_pair(name, tk, False)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"{name} at {n} lanes, K = {group}: "
+                                     f"wrong outputs")
+                return time_ms(lambda: run_pair(name, tk, False), reps=15)
+
+            by_group = {group: timed(group) for group in AFFINE_SWEEP}
+            chosen = res[f"group_{n}"]
+            res[f"ms_by_group_{n}"] = by_group
+            res[f"bound_int_ms_{n}"] = int_bound(name, n)
+            emit("timing", name=name + "_groups", lanes=n, warps_per_sm=warps,
+                 ms_by_group=by_group, chosen=chosen,
+                 chosen_within_10pct=by_group[chosen]
+                 <= 1.1 * min(by_group.values()),
+                 bound_int_ms=res[f"bound_int_ms_{n}"],
+                 bound_lat_ms=res["bound_lat_ms"])
     # msm_winreduce's lane chunks (cuda_msm.winreduce_blocks): ms of the
     # window reduce and of the msm_finish after it by nblk, from two warps
     # an SM up, on both MSMs of batch verify and on the 2^20-point MSM

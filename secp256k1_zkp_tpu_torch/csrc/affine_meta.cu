@@ -1,61 +1,74 @@
 // affine_meta: jacobian (X, Y, Z) -> canonical affine (x, y) and whether
-// y is a square, the serialization step of Pedersen commitments and
-// generators (the prefix bit of their 33-byte form).
+// y is a nonzero square, the serialization step of Pedersen commitments
+// and generators (the prefix bit of their 33-byte form).
 //
 // Replaces the TPU kernel _affine_meta_kernel (ops/pallas_field.py,
-// affine_meta_tpu): one safegcd inverse of Z (canonicalised first), x =
-// X Z^-2, y = Y Z^-3 — the code of affine_xy.cu — and the quadratic
-// character of t = Y Z^3, which is y's (they differ by the square Z^6).
-// The TPU kernel powers t by (p-1)/2 from a 4-bit digit schedule held in
-// scalar memory, a Mosaic artefact; here the character comes from the
-// reference's fixed sqrt chain (fe_pow_sqrt, fe.cuh): r = t^((p+1)/4) and
-// t is a nonzero square iff r^2 == t.  A root check alone would call
-// t = 0 a square; the TPU kernel's character there is 0, not 1, so the
-// check is ANDed with t != 0: infinity lanes (Z = 0) and the weak zero
-// Z = p give zeros and sq = 0, as on the TPU.
+// affine_meta_tpu), which reads the character of t = Y Z^3 by powering it
+// to (p-1)/2.  Here x, y are affine_xy.cu's (affine.cuh: K lanes a thread,
+// one inverse for the group), and the character is read from the
+// canonical affine y the kernel has just written, which equals t's for
+// every Z != 0 (they differ by the square Z^6).  Where Z is zero (0 or the
+// weak zero p) y is 0, and y = 0 gives sq = 0, as t = 0 does on the TPU.
 //
-// Z belongs to a commitment of a secret blind: the inverse and the chain
-// are fixed dataflow, nothing branches on the data.
-// Bound on this card: operations — the inverse (600 divsteps and 20 limb
-// updates), the chain (253 squarings and 13 multiplies) and 8 more field
-// operations (~14,000 32-bit multiply-adds) against 48 words in and 33 out
-// a lane.  One thread per lane, all in registers.
-#include "modinv.cuh"
-#include "fe.cuh"
+// The character is the Jacobi symbol (y | p) by positive divsteps
+// (modinv.cuh jacobi30_var), the reference's route: secp256k1_fe_is_square_var
+// over jacobi32_maybe_var, posdivsteps_30_var.  Form: a cap of 50 batches
+// of 30 steps, and on a lane still undecided after it the reference's
+// fixed sqrt chain (fe_pow_sqrt_to: r = y^((p+1)/4), a square iff r^2 ==
+// y), as the reference falls back to fe_sqrt; the wrapper counts those
+// lanes (0 on random data: they reach f = 1 after 750-850 steps).  Both
+// routes give the exact character, so the result is the same bit either
+// way.  The Jacobi's trip count, and the fallback, depend on y: this is
+// the kernel's one variable-time step, and it reads only the PUBLIC affine
+// y, which every caller publishes as the point's serialization.  Z and t
+// belong to a commitment's secret blind: the inverse, its group and every
+// select before y exists are fixed dataflow, nothing branches on or
+// addresses by X, Y, Z or t.
+//
+// Bound on this card: operations — affine_xy.cu's a lane and a Jacobi
+// symbol (the divsteps and the f, g half of the limb updates), against 48
+// words in and 33 out a lane.  On the inlined core: 0 B stack.
+#include "affine.cuh"
 
-SECP_DEV void affine_meta_lane(const uint32_t* x_in, const uint32_t* y_in,
-                               const uint32_t* z_in, uint32_t* ax_out,
-                               uint32_t* ay_out, uint32_t* sq_out, int B,
-                               int lane) {
-    fe X = load16(x_in, B, lane);
-    fe Y = load16(y_in, B, lane);
-    fe Z = load16(z_in, B, lane);
-    fe zinv = modinv_p(fe_canon(Z));
-    fe zi2 = fe_sqr(zinv);
-    fe zi3 = fe_mul(zi2, zinv);
-    store16(ax_out, B, lane, fe_canon(fe_mul(X, zi2)));
-    store16(ay_out, B, lane, fe_canon(fe_mul(Y, zi3)));
-    fe t = fe_mul(Y, fe_mul(fe_sqr(Z), Z));
-    fe r = fe_pow_sqrt(t);
-    uint32_t root = fe_is_zero(fe_sub(fe_sqr(r), t));
-    sq_out[lane] = root & (fe_is_zero(t) ^ 1u);
+#define SECP_AFFINE_THREADS 128
+
+SECP_DEV void affine_meta_group(const uint32_t* x, const uint32_t* y,
+                                const uint32_t* z, uint32_t* ax,
+                                uint32_t* ay, uint32_t* sq,
+                                uint32_t* undecided, int B, int K, int t) {
+    affine_group<true>(x, y, z, ax, ay, sq, undecided, B, K,
+                       (B + K - 1) / K, t);
 }
 
 #ifdef __CUDACC__
-__global__ void affine_meta_kernel(const uint32_t* x, const uint32_t* y,
-                                   const uint32_t* z, uint32_t* ax,
-                                   uint32_t* ay, uint32_t* sq, int B) {
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane < B) affine_meta_lane(x, y, z, ax, ay, sq, B, lane);
+__global__ void __launch_bounds__(SECP_AFFINE_THREADS)
+affine_meta_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                   uint32_t* ax, uint32_t* ay, uint32_t* sq,
+                   uint32_t* undecided, int B, int K) {
+    const int t = blockIdx.x * SECP_AFFINE_THREADS + threadIdx.x;
+    if (t < (B + K - 1) / K)
+        affine_meta_group(x, y, z, ax, ay, sq, undecided, B, K, t);
 }
 
+// undecided: one uint32 that each lane the Jacobi leaves undecided adds 1 to
 extern "C" int secp_affine_meta(const uint32_t* x, const uint32_t* y,
                                 const uint32_t* z, uint32_t* ax, uint32_t* ay,
-                                uint32_t* sq, int B, void* stream) {
-    if (B <= 0) return 0;
-    const int threads = 128;
-    affine_meta_kernel<<<(B + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(x, y, z, ax, ay, sq, B);
+                                uint32_t* sq, uint32_t* undecided, int B,
+                                int K, void* stream) {
+    if (B <= 0 || K <= 0) return 0;
+    const int threads = (B + K - 1) / K;
+    affine_meta_kernel<<<(threads + SECP_AFFINE_THREADS - 1)
+                             / SECP_AFFINE_THREADS,
+                         SECP_AFFINE_THREADS, 0, (cudaStream_t)stream>>>(
+        x, y, z, ax, ay, sq, undecided, B, K);
     return (int)cudaGetLastError();
+}
+
+// warps an SM holds at once for this kernel's launches; < 0: -(error)
+extern "C" int secp_affine_meta_warps(void) {
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, affine_meta_kernel, SECP_AFFINE_THREADS, 0);
+    return e ? -(int)e : blocks * (SECP_AFFINE_THREADS / 32);
 }
 #endif

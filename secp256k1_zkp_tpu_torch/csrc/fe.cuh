@@ -286,6 +286,18 @@ SECP_INLINE uint32_t fe_is_zero(const fe& a) {
     return (uint32_t)(z == 0) | (uint32_t)(zp == 0);   // no branch
 }
 
+// 8 words at rows row.. of a thread's word-major scratch column (row stride
+// ld): one coalesced row segment a warp for each word
+SECP_INLINE void col_store(uint32_t* s, size_t ld, int row, const fe& a) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[(size_t)(row + w) * ld] = a.v[w];
+}
+
+SECP_INLINE void col_load(const uint32_t* s, size_t ld, int row, fe& a) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) a.v[w] = s[(size_t)(row + w) * ld];
+}
+
 // --- by-value forms ------------------------------------------------------
 
 SECP_NOINLINE fe fe_mul(fe a, fe b) {
@@ -400,11 +412,4 @@ SECP_INLINE void fe_pow_sqrt_to(fe& r, const fe& a) {
     fe_mul_to(t, t, x2);
     fe_sqr_n_to(t, 2);
     r = t;
-}
-
-// the by-value form, a thin wrapper over the chain above (affine_meta.cu)
-SECP_NOINLINE fe fe_pow_sqrt(fe a) {
-    fe r;
-    fe_pow_sqrt_to(r, a);
-    return r;
 }

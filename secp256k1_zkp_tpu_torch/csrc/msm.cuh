@@ -43,17 +43,6 @@ SECP_INLINE void msm_entry_load(const uint32_t* tab, size_t idx, fe& x,
 #define SECP_MT_RATIO_ROW(d) (13 * 16 + ((d) - 3) * 8)
 #define SECP_MT_SCRATCH_ROWS (13 * 16 + 12 * 8)      // 304
 
-// 8 words at rows row.. of this thread's scratch column (row stride ld)
-SECP_INLINE void col_store(uint32_t* s, size_t ld, int row, const fe& a) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) s[(size_t)(row + w) * ld] = a.v[w];
-}
-
-SECP_INLINE void col_load(const uint32_t* s, size_t ld, int row, fe& a) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) a.v[w] = s[(size_t)(row + w) * ld];
-}
-
 // msm_table.cu's lane: the table of lane `lane` of B points (limb-major
 // px, py [16, B], pinf [B]) into tab, with the word-major scratch of
 // SECP_MT_SCRATCH_ROWS rows of row stride B

@@ -94,8 +94,11 @@ extern "C" int secp_msm_finish_warps(void) {
 // the inlined core, and thread 0 writes the result back.  op 0: doublings
 // (jp_double_to); 1: complete adds of 2a; 2: doublings by a pair of
 // threads (jp_double_pair_to); 3: field squarings of x; 4: field
-// multiplies of x by y.
+// multiplies of x by y; 5: safegcd inverses of x (modinv30); 6: Jacobi
+// symbols of x (jacobi30_var; x's low bit takes the result, so the next
+// one waits on it: x stays nonzero and below p from G's x).
 __global__ void latency_probe_kernel(uint32_t* io, int op, int n) {
+    const modinfo30 mi = { SECP_MODINV_P_LIMBS, SECP_MODINV_P_INV30 };
     jp a, b;
     for (int i = 0; i < 8; ++i) {
         a.x.v[i] = io[i];
@@ -110,7 +113,9 @@ __global__ void latency_probe_kernel(uint32_t* io, int op, int n) {
         else if (op == 1) jp_add_to(a, a, b);
         else if (op == 2) jp_double_pair_to(a, a);
         else if (op == 3) fe_sqr_to(a.x, a.x);
-        else fe_mul_to(a.x, a.x, a.y);
+        else if (op == 4) fe_mul_to(a.x, a.x, a.y);
+        else if (op == 5) a.x = modinv30(a.x, mi);
+        else a.x.v[0] ^= (uint32_t)(jacobi30_var(a.x, mi) > 0);
     }
     if (threadIdx.x != 0) return;
     for (int i = 0; i < 8; ++i) {

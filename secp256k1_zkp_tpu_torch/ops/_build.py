@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+from functools import lru_cache
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -55,7 +56,8 @@ _SIGNATURES = {
     "secp_batch_digest": [_VP] * 6 + [_INT, _VP],
     "secp_sha256_warps": [_INT],
     "secp_ecdsa_finish": [_VP] * 9 + [_INT, _VP],
-    "secp_affine_xy": [_VP] * 5 + [_INT, _VP],
+    "secp_affine_xy": [_VP] * 5 + [_INT, _INT, _VP],
+    "secp_affine_xy_warps": [],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],
     "secp_gej_add": [_VP] * 12 + [_INT, _VP],
     "secp_gej_sum": [_VP] * 9 + [_INT, _INT, _VP],
@@ -67,7 +69,8 @@ _SIGNATURES = {
     "secp_msm_finish": [_VP] * 8 + [_INT] * 2 + [_VP],
     "secp_msm_finish_warps": [],
     "secp_latency_probe": [_VP, _INT, _INT, _VP],
-    "secp_affine_meta": [_VP] * 6 + [_INT, _VP],
+    "secp_affine_meta": [_VP] * 7 + [_INT, _INT, _VP],
+    "secp_affine_meta_warps": [],
     "secp_inv_n": [_VP, _VP, _INT, _VP],
 }
 
@@ -191,6 +194,13 @@ def check(code: int, name: str) -> None:
 def stream_ptr() -> int:
     import torch
     return torch.cuda.current_stream().cuda_stream
+
+
+@lru_cache(maxsize=8)
+def sm_count(device: str) -> int:
+    """The SMs of a CUDA device (the launch rules size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_rows(t, rows: int, name: str, lanes: int | None = None) -> int:

@@ -273,6 +273,58 @@ def schnorr_check(x, y, z, inf, rx):
 # ---------------------------------------------------------------------------
 
 
+# lanes a thread of the affine conversions (K: one inverse per K lanes,
+# csrc/affine.cuh) and the warps an SM the rule aims for (the sweep of
+# chip_smoke.py, PERF.md)
+AFFINE_GROUPS = (1, 2, 4, 8)
+AFFINE_WARPS = 6
+
+
+def affine_group(lanes: int, sms: int) -> int:
+    """Lanes a thread of ``affine_xy`` / ``affine_meta`` (K): the most of
+    ``AFFINE_GROUPS`` for which ceil(B / K) threads still fill
+    ``AFFINE_WARPS`` warps on each of the card's ``sms`` SMs; 1 while B
+    threads do not.  Thread t takes the lanes t, t + S, ... (S the thread
+    count) and inverts their product once."""
+    group = 1
+    while (2 * group <= AFFINE_GROUPS[-1]
+           and -(-lanes // (2 * group)) >= sms * 32 * AFFINE_WARPS):
+        group *= 2
+    return group
+
+
+def affine_operands(name: str, x, y, z, group: int | None):
+    """Check an affine conversion's CUDA operands; returns (B, K), K
+    :func:`affine_group`'s where ``group`` is None."""
+    lanes = _build.check_rows(x, LIMBS, f"{name} x")
+    _build.check_rows(y, LIMBS, f"{name} y", lanes)
+    _build.check_rows(z, LIMBS, f"{name} z", lanes)
+    if group is None:
+        group = affine_group(lanes, _build.sm_count(str(x.device)))
+    if group < 1:
+        raise ValueError(f"{name}: expected group >= 1, got {group}")
+    return lanes, group
+
+
+@lru_cache(maxsize=8)
+def _undecided(device: str) -> torch.Tensor:
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def jacobi_undecided(device, reset: bool = False) -> int:
+    """Lanes of ``affine_meta`` launches on ``device`` whose Jacobi symbol
+    was left undecided after its cap and took the square-root chain, since
+    the last reset (``reset=True`` reads and zeroes the count)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    count = _undecided(str(device))
+    n = int(count.item())
+    if reset:
+        count.zero_()
+    return n
+
+
 def affine_plain(x, y, z):
     """Jacobian -> canonical affine int64 limbs; z = 0 gives zeros."""
     X, Y, Z = (t.to(I64) for t in (x, y, z))
@@ -292,20 +344,21 @@ def affine_meta_ref(x, y, z):
     return xa.to(torch.int32), ya.to(torch.int32), sq
 
 
-def affine_meta(x, y, z):
+def affine_meta(x, y, z, group: int | None = None):
     """Jacobian (x, y, z) ``[16, B]`` int32 limbs -> (x, y canonical affine
     ``[16, B]`` int32, sq ``[B]`` bool): sq says y is a nonzero square,
-    read as the quadratic character of Y*Z^3.  Infinity lanes (z = 0, or
-    the weak zero z = p) give zeros and sq false — false also where Y = 0,
-    where ``field.is_square`` would say true (it counts 0 as a square).
+    the quadratic character of Y*Z^3.  Infinity lanes (z = 0, or the weak
+    zero z = p) give zeros and sq false — false also where Y = 0, where
+    ``field.is_square`` would say true (it counts 0 as a square).
 
     CUDA tensors go through the hand-written kernel
-    (``csrc/affine_meta.cu``); CPU tensors through the plain version."""
+    (``csrc/affine_meta.cu``: ``group`` lanes a thread as in
+    ``cuda_gen.affine_xy``, the character by a Jacobi symbol of the public
+    affine y; lanes it leaves undecided are counted,
+    :func:`jacobi_undecided`); CPU tensors through the plain version."""
     if not x.is_cuda:
         return affine_meta_ref(x, y, z)
-    lanes = _build.check_rows(x, LIMBS, "affine_meta x")
-    _build.check_rows(y, LIMBS, "affine_meta y", lanes)
-    _build.check_rows(z, LIMBS, "affine_meta z", lanes)
+    lanes, group = affine_operands("affine_meta", x, y, z, group)
     ax = torch.empty_like(x)
     ay = torch.empty_like(x)
     sq = torch.empty((lanes,), dtype=torch.int32, device=x.device)
@@ -313,6 +366,6 @@ def affine_meta(x, y, z):
     _build.count_launch("affine_meta")
     _build.check(lib.secp_affine_meta(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), ax.data_ptr(),
-        ay.data_ptr(), sq.data_ptr(), lanes, _build.stream_ptr()),
-        "affine_meta")
+        ay.data_ptr(), sq.data_ptr(), _undecided(str(x.device)).data_ptr(),
+        lanes, group, _build.stream_ptr()), "affine_meta")
     return ax, ay, sq != 0

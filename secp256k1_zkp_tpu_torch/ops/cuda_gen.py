@@ -35,8 +35,8 @@ import torch
 from . import _build
 from ..utils import hostcurve as hc
 from .cuda_divsteps import inv_limbs16
-from .cuda_field import (I64, LIMBS, MASK16, affine_plain, canon_p,
-                         const_rows, limbs16, ripple)
+from .cuda_field import (I64, LIMBS, MASK16, affine_operands,
+                         affine_plain, canon_p, const_rows, limbs16, ripple)
 from .cuda_group import (FE, fe_const, fe_neg, fe_select, fe_weak,
                          jp_add_aff, jp_inf)
 from .cuda_scalar import (N_ORDER, NW7, _RED, _N_HALF, _add_mod_n,
@@ -147,11 +147,6 @@ COMB_TEAMS = (1, 2, 4, 8)        # threads a lane the kernel takes
 COMB_WARPS = {COMB_SCAN: 8, COMB_GATHER: 4}
 
 
-@lru_cache(maxsize=8)
-def _sm_count(device: str) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def comb_team(lanes: int, sms: int, mode: int) -> int:
     """Threads a lane of the comb (T): the most of ``COMB_TEAMS`` for
     which B * T threads stay within ``COMB_WARPS[mode]`` warps on each of
@@ -174,7 +169,7 @@ def _comb_launch(gdigs: torch.Tensor, gb, mode: int,
     lanes = _build.check_rows(gdigs, NW7, "fixedbase gdigs")
     dev = str(gdigs.device)
     if team is None:
-        team = comb_team(lanes, _sm_count(dev), mode)
+        team = comb_team(lanes, _build.sm_count(dev), mode)
     tab = _comb_words(dev)
     ox = torch.empty((LIMBS, lanes), dtype=I32, device=gdigs.device)
     oy = torch.empty_like(ox)
@@ -260,24 +255,24 @@ def affine_xy_ref(x, y, z):
     return xa.to(I32), ya.to(I32)
 
 
-def affine_xy(x, y, z):
+def affine_xy(x, y, z, group: int | None = None):
     """Jacobian (x, y, z) ``[16, B]`` int32 limbs -> canonical affine
     (x, y) ``[16, B]`` int32; infinity lanes (z = 0) give zeros.
 
-    CUDA tensors go through the hand-written kernel (``csrc/affine_xy.cu``);
-    CPU tensors through the plain version."""
+    CUDA tensors go through the hand-written kernel (``csrc/affine_xy.cu``:
+    ``group`` lanes a thread with one inverse for them, None taking
+    :func:`cuda_field.affine_group`'s K); CPU tensors through the plain
+    version."""
     if not x.is_cuda:
         return affine_xy_ref(x, y, z)
-    lanes = _build.check_rows(x, LIMBS, "affine_xy x")
-    _build.check_rows(y, LIMBS, "affine_xy y", lanes)
-    _build.check_rows(z, LIMBS, "affine_xy z", lanes)
+    lanes, group = affine_operands("affine_xy", x, y, z, group)
     ax = torch.empty_like(x)
     ay = torch.empty_like(x)
     lib = _build.lib()
     _build.count_launch("affine_xy")
     _build.check(lib.secp_affine_xy(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), ax.data_ptr(),
-        ay.data_ptr(), lanes, _build.stream_ptr()), "affine_xy")
+        ay.data_ptr(), lanes, group, _build.stream_ptr()), "affine_xy")
     return ax, ay
 
 

@@ -291,6 +291,9 @@ def _b0_harness(tmp_path):
     lib.b0_batch_digest.argtypes = [vp, vp, vp, i32, i32, vp, vp]
     lib.b0_lift_x.argtypes = [vp, vp, vp, i32]
     lib.b0_even_root.argtypes = [vp, vp, i32]
+    lib.b0_affine.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32]
+    lib.b0_affine.restype = u32
+    lib.b0_jacobi.argtypes = [vp, vp, i32]
     return lib
 
 
@@ -739,6 +742,73 @@ def _check_b0_lift_x(lib):
     assert _from_words(r) == [P - v if v & 1 else v for v in ys]
 
 
+def _affine_edges(rng, B, K):
+    """Jacobian lanes (x, y, z ints) for a launch of B lanes with K lanes a
+    thread (S = ceil(B / K) threads; thread t holds t, t + S, ...): Z = 0
+    at the first, a middle and the last slot of thread 0's group, thread
+    2's whole group at Z = 0, Z = p and p + 1 in thread 3's, Y = 0 on lane
+    5; the rest random, weak values (>= p) among them."""
+    S = -(-B // K)
+    xs, ys, zs = (rand(rng, 2 ** 256, B) for _ in range(3))
+    for i in (0, K // 2, K - 1):
+        zs[i * S] = 0
+    for lane in range(2, B, S):
+        zs[lane] = 0
+    zs[3] = P
+    zs[3 + S if 3 + S < B else 4] = P + 1
+    ys[5] = 0
+    zs[5] = zs[5] or 1
+    return xs, ys, zs
+
+
+def _check_b0_affine(lib):
+    """affine_xy.cu's and affine_meta.cu's thread groups (affine.cuh) on
+    every thread of a launch against Python ints (z^-1 by pow, x = X z^-2,
+    y = Y z^-3, Euler's criterion for y) and the plain versions: K = 1, 2,
+    3 and 8 lanes a thread on a ragged 29 lanes and K = 8 on 64, with the
+    edges of _affine_edges; and modinv.cuh's Jacobi symbol on 0, 1, p - 1,
+    200 random squares and 200 random non-squares."""
+    rng = np.random.default_rng(20)
+    for B, K in ((29, 1), (29, 2), (29, 3), (29, 8), (64, 8)):
+        xs, ys, zs = _affine_edges(rng, B, K)
+        x, y, z = (rows_np(v) for v in (xs, ys, zs))
+        want_x, want_y, want_sq = [], [], []
+        for X, Y, Z in zip(xs, ys, zs):
+            zi = pow(Z % P, -1, P) if Z % P else 0
+            ax, ay = X * zi * zi % P, Y * zi ** 3 % P
+            want_x.append(ax)
+            want_y.append(ay)
+            want_sq.append(ay != 0 and pow(ay, (P - 1) // 2, P) == 1)
+        assert {True, False} <= set(want_sq)
+        ref = TF.affine_meta_ref(*(torch.from_numpy(a.astype(np.int64))
+                                   for a in (x, y, z)))
+        for meta in (0, 1):
+            ax, ay = np.zeros_like(x), np.zeros_like(x)
+            sq = np.zeros(B, np.uint32)
+            undecided = lib.b0_affine(meta, x.ctypes.data, y.ctypes.data,
+                                      z.ctypes.data, ax.ctypes.data,
+                                      ay.ctypes.data, sq.ctypes.data, B, K)
+            assert (ints(ax), ints(ay)) == (want_x, want_y), (B, K, meta)
+            assert ax.astype(np.int64).tolist() == ref[0].tolist()
+            assert ay.astype(np.int64).tolist() == ref[1].tolist()
+            if meta:
+                assert undecided == 0
+                assert sq.astype(bool).tolist() == want_sq, (B, K)
+                assert sq.astype(bool).tolist() == ref[2].tolist()
+    plain_xy = TGEN.affine_xy_ref(*(torch.from_numpy(a.astype(np.int64))
+                                    for a in (x, y, z)))
+    assert [t.tolist() for t in plain_xy] == [ref[0].tolist(),
+                                              ref[1].tolist()]
+    roots = rand(rng, P, 400)
+    squares = [r * r % P for r in roots[:200]]
+    nonsq = [v for v in roots[200:] if pow(v, (P - 1) // 2, P) != 1]
+    nonsq += [P - s for s in squares[:200 - len(nonsq)]]
+    vals = [0, 1, P - 1] + squares + nonsq
+    w, out = _words(vals), np.zeros(len(vals), np.int32)
+    lib.b0_jacobi(w.ctypes.data, out.ctypes.data, len(vals))
+    assert out.tolist() == [0, 1, -1] + [1] * 200 + [-1] * 200
+
+
 def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
     modules and the JAX package; and the B0 field and group core of
@@ -748,9 +818,11 @@ def test_cuda_constants_header(tmp_path):
     and with them the comb's T-thread sum (csrc/comb.cuh), msm_table's
     lane (csrc/msm.cuh), msm_finish's block and gej_sum's blocks (the
     folds and trees of csrc/group.cuh), the SHA-256 kernels' staging,
-    padding, RFC6979 lane and batch tree (csrc/sha256.cuh) and lift_x's
-    lane on the inlined sqrt chain; the PTX forms are held against the
-    plain PyTorch versions on the card by chip_smoke.py."""
+    padding, RFC6979 lane and batch tree (csrc/sha256.cuh), lift_x's
+    lane on the inlined sqrt chain, and the affine conversions' thread
+    groups with their batched inverse and Jacobi symbol (csrc/affine.cuh,
+    modinv.cuh); the PTX forms are held against the plain PyTorch versions
+    on the card by chip_smoke.py."""
     lib = _b0_harness(tmp_path)
     _check_b0_field(lib)
     _check_b0_group(lib)
@@ -762,6 +834,7 @@ def test_cuda_constants_header(tmp_path):
     _check_b0_rfc6979(lib)
     _check_b0_batch_digest(lib)
     _check_b0_lift_x(lib)
+    _check_b0_affine(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

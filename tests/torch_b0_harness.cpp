@@ -23,10 +23,17 @@
 // block's leaves and its subtree, the blocks' roots through the scratch
 // and the last block's levels); and lift_x.cu's lane on the inlined sqrt
 // chain (fe_pow_sqrt_to of fe.cuh), compiled from the kernel's own file.
+//
+// And affine_xy.cu's and affine_meta.cu's thread groups (affine.cuh: K
+// lanes a thread, one inverse for the group, the prefixes in the x
+// output's rows), compiled from the kernels' own files and run for every
+// thread of a launch, and modinv.cuh's Jacobi symbol alone.
 #include <string.h>
 
 #include <vector>
 
+#include "affine_meta.cu"
+#include "affine_xy.cu"
 #include "comb.cuh"
 #include "lift_x.cu"
 #include "msm.cuh"
@@ -370,6 +377,28 @@ void b0_lift_x(const uint32_t* x, uint32_t* y, uint32_t* ok, int n) {
 
 void b0_even_root(const uint32_t* y, uint32_t* r, int n) {
     for (int i = 0; i < n; ++i) st(r + 8 * i, lift_x_even(ld(y + 8 * i)));
+}
+
+// a launch of affine_xy.cu (meta = 0) or affine_meta.cu (meta = 1) with K
+// lanes a thread on x, y, z [16, B] limb-major: ax, ay [16, B], sq [B];
+// returns the lanes the Jacobi left undecided
+uint32_t b0_affine(int meta, const uint32_t* x, const uint32_t* y,
+                   const uint32_t* z, uint32_t* ax, uint32_t* ay,
+                   uint32_t* sq, int B, int K) {
+    uint32_t undecided = 0;
+    for (int t = 0; t < (B + K - 1) / K; ++t) {
+        if (meta)
+            affine_meta_group(x, y, z, ax, ay, sq, &undecided, B, K, t);
+        else
+            affine_xy_group(x, y, z, ax, ay, B, K, t);
+    }
+    return undecided;
+}
+
+// jacobi30_var of canonical x [n] (8 words each): 1, -1 or 0 (undecided)
+void b0_jacobi(const uint32_t* x, int32_t* r, int n) {
+    const modinfo30 mi = { SECP_MODINV_P_LIMBS, SECP_MODINV_P_INV30 };
+    for (int i = 0; i < n; ++i) r[i] = jacobi30_var(ld(x + 8 * i), mi);
 }
 
 }

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's hashes, ``lift_x`` and the calls around them on one
-NVIDIA GPU.
+"""Time the port's hashes, ``lift_x``, the affine conversions and the
+calls around them on one NVIDIA GPU.
 
     python3 time_sha.py              # from the root of a checkout
 
@@ -14,12 +14,14 @@ data the same way, at 16,384 and 262,144 lanes:
   it: ``ecdsa.rfc6979_nonce`` (ECDSA signing's DRBG),
   ``schnorrsig.challenge`` (the tagged challenge hash),
   ``schnorrsig._batch_digest`` (the batch tree), the ``lift_x`` kernel on
-  n and on 2n lanes (batch verify's P and R), ``affine_meta`` (whose
-  square-root chain is ``lift_x``'s);
-- whole calls: ``ecdsa.sign``, ``schnorrsig.sign``, ``schnorrsig.verify``
-  and ``schnorrsig.batch_verify``, the host clock around a call that ends
-  in ``torch.cuda.synchronize()`` (median of 5), and the device ms and
-  kernel count of one call under ``torch.profiler``.
+  n and on 2n lanes (batch verify's P and R), ``affine_meta`` and
+  ``affine_xy`` (the affine conversions, at the K their wrappers pick);
+- whole calls: ``ecdsa.sign``, ``schnorrsig.sign``, ``schnorrsig.verify``,
+  ``schnorrsig.batch_verify``, ``generator.pedersen_commit_bytes`` and
+  ``ecdsa.recover`` (of the version's own signatures), the host clock
+  around a call that ends in ``torch.cuda.synchronize()`` (median of 5),
+  and the device ms and kernel count of one call under
+  ``torch.profiler``.
 
 Prints one JSON line per number, the card's name and power limit, and a
 last line ``{"ok": true, ...}``.  Exits non-zero without a CUDA device.
@@ -36,8 +38,8 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from secp256k1_zkp_tpu_torch.modules import ecdsa, schnorrsig
-from secp256k1_zkp_tpu_torch.ops import cuda_field
+from secp256k1_zkp_tpu_torch.modules import ecdsa, generator, schnorrsig
+from secp256k1_zkp_tpu_torch.ops import cuda_field, cuda_gen
 
 SIZES = (16384, 262144)
 
@@ -75,10 +77,11 @@ def main() -> int:
     sbase = cs.make_schnorr_distinct(2048, 42)
     gbase = cs.make_sign_distinct(2048, 42)
     gsbase = cs.make_ssign_distinct(2048, 42)
+    pbase = cs.make_pedersen_distinct(2048, 42)
     emit(name="data", seconds=round(time.time() - t0, 1))
     for n in SIZES:
-        msgs, secs = (torch.as_tensor(a).to(dev)
-                      for a in cs.make_sign_batch(gbase, n)[:2])
+        gbatch = cs.make_sign_batch(gbase, n)
+        msgs, secs = (torch.as_tensor(a).to(dev) for a in gbatch[:2])
         smsgs, ssecs, sauxs = (torch.as_tensor(a).to(dev)
                                for a in cs.make_ssign_batch(gsbase, n)[:3])
         vmsgs, vsigs, vpxs = (torch.as_tensor(a).to(dev)
@@ -97,6 +100,7 @@ def main() -> int:
             "lift_x": lambda: cuda_field.lift_x(px),
             "lift_x_2n": lambda: cuda_field.lift_x(px2),
             "affine_meta": lambda: cuda_field.affine_meta(px, rx, px),
+            "affine_xy": lambda: cuda_gen.affine_xy(px, rx, px),
         }
         for label, fn in steps.items():
             emit(name=label, lanes=n, ms=cs.time_ms(fn, reps=15))
@@ -108,6 +112,15 @@ def main() -> int:
             vmsgs, vsigs, vpxs, device=dev), lanes=n)
         whole("schnorr.batch_verify", lambda: schnorrsig.batch_verify(
             bmsgs, bsigs, bpxs, device=dev), lanes=n)
+        commit = [a.to(dev) for a in cs.make_pedersen_batch(pbase, n)[:4]]
+        whole("generator.pedersen_commit_bytes",
+              lambda: generator.pedersen_commit_bytes(*commit, device=dev),
+              lanes=n)
+        sig, recid, _ = ecdsa.sign(msgs, secs, device=dev)
+        rec = [a.to(dev) for a in cs.make_recover_batch(
+            gbatch[0], sig, recid, gbatch[4], gbatch[5])[:3]]
+        whole("ecdsa.recover", lambda: ecdsa.recover(*rec, device=dev),
+              lanes=n)
     emit(name="total", seconds=round(time.time() - t0, 1))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
