@@ -60,8 +60,9 @@ and stores.  ``bound_ms`` stays the column that ranks the kernels.
 Phase ``build`` fails if a redesigned kernel (``STACK_FREE``: B3, B13,
 the comb's kernels, ``msm_table_kernel``, ``msm_finish_kernel``,
 ``gej_sum_kernel``, ``gej_add_kernel``, ``lift_x_kernel``, the three
-new SHA-256 kernels, ``affine_xy_kernel`` and ``affine_meta_kernel``)
-reports a stack or a spill in
+new SHA-256 kernels, ``affine_xy_kernel``, ``affine_meta_kernel``,
+``ecdsa_prep_kernel`` and ``ecdsa_finish_kernel``) reports a stack or a
+spill in
 ``ptxas -v``, or if the comb's secret row scan spends more than about one
 instruction (LOP3 or SEL) a word on its selects (``sass["scan"]``);
 phase ``timing`` gives the warps per SM of their launches
@@ -69,10 +70,11 @@ phase ``timing`` gives the warps per SM of their launches
 ``msm_winreduce``'s lane chunks (nblk) with the ``msm_finish`` that
 follows, at 16,384, 262,144 and 2^20 points, and a sweep of the comb's
 threads a lane (T = 1, 2, 4, 8; each T's points checked) at both sizes
-beside the T the wrapper's rule picks, and a sweep of the affine
-conversions' lanes a thread (K = 1, 2, 4, 8, 16, one inverse per K lanes;
-each K's outputs checked) at both sizes beside the K of
-``cuda_field.affine_group``.
+beside the T the wrapper's rule picks, and a sweep of the lanes a thread
+of the kernels on a batched inverse — the affine conversions,
+``ecdsa_prep`` and ``ecdsa_finish`` — (K = 1, 2, 4, 8, 16, one inverse
+per K lanes; each K's outputs checked) at both sizes beside the K of
+their wrappers' rules (``GROUP_RULES``).
 
 ``msm_finish`` and ``gej_sum`` are bound by latency: a chain of additions
 in sequence that no design can shorten.  Beside ``bound_ms`` they carry
@@ -137,6 +139,21 @@ a squaring and three multiplies (and, for ``affine_meta``, a Jacobi
 symbol), by the latency probe's ``lat_inv_ms``, ``lat_jacobi_ms``,
 ``lat_sqr_ms`` and ``lat_mul_ms``.
 
+``ecdsa_prep`` and ``ecdsa_finish`` take K lanes a thread too, with one
+inverse over n (of s) and, for the finish, one over p (of Z) and one
+over n (of the secret k) for the K lanes (``csrc/batch_inv.cuh``).  Each
+is also held on an edge set cut to the same ragged 262,109 lanes at the
+wrapper's K and at K = 1, 2, 3 and 8: ``prep_edge_set`` (s = 0 at the
+first, a middle and the last slot of one thread's group and on another
+whole group, s = 1, n - 1, m = 0) from the verify path's scalars,
+``finish_edge_set`` (z = 0 and k = 0 likewise, z = p and p + 1, m = 0,
+an affine x in [n, p)) from the sign path's operands.  Their ``OPS``
+price each inverse at the function's least work, Montgomery's trick
+over 32 lanes; beside ``bound_ms`` they carry ``bound_int_ms`` and
+``bound_lat_ms``: one lane's chain by the latency probe (an inverse and
+``PREP_LAT_MUL`` products; an inverse, a squaring and
+``FINISH_LAT_MUL`` products).
+
 The MSM engine's bounds count this run's data: ``msm_winreduce`` one mixed
 add per nonzero digit of a finite point (zero digits and infinite points
 add nothing), reading the table, digits and flags once; ``msm_finish`` one
@@ -194,11 +211,14 @@ ADD_JAC = 6 * SQR + 11 * MUL      # complete jacobian add
 MODINV = 20 * (30 * 13 // 2 + 90)
 # the Jacobi symbol: the same divsteps and the f, g half of the limb updates
 JACOBI = 20 * (30 * 13 // 2 + 45)
-# the affine conversion's least work a lane: the inverse by Montgomery's
-# trick over 32 lanes (3 multiplies and 1/32 of one inverse), Z^-2, Z^-3,
-# x and y
-AFFINE = MODINV / 32 + 3 * MUL + SQR + 3 * MUL
 SC_MUL = 64 + 3 * 40              # 8x8 words + three folds by the 129-bit red
+# a lane's inverse at the function's least work: Montgomery's trick over
+# 32 lanes (3 products and 1/32 of one safegcd inverse), over p and over n
+INV_TRICK_P = MODINV / 32 + 3 * MUL
+INV_TRICK_N = MODINV / 32 + 3 * SC_MUL
+# the affine conversion's least work a lane: the inverse, Z^-2, Z^-3, x
+# and y
+AFFINE = INV_TRICK_P + SQR + 3 * MUL
 # GLV split: k*g1, k*g2 (8x8 each), c1*(-b1) (4x4), c2*(-b2) (4x8), their
 # two reductions and the modular multiply by lambda
 GLV_SPLIT = 2 * 64 + 48 + 2 * 120 + SC_MUL
@@ -208,8 +228,8 @@ GLV_SPLIT = 2 * 64 + 48 + 2 * 120 + SC_MUL
 SHA_BLOCK = (64 * 26 + 48 * 13 + 8) / 2
 OPS = {
     "mulmod_chain": MUL,          # per multiply of the chain
-    # inverse, u1, u2, split
-    "ecdsa_prep": MODINV + 2 * SC_MUL + GLV_SPLIT,
+    # the inverse of s (the trick), u1, u2, split
+    "ecdsa_prep": INV_TRICK_N + 2 * SC_MUL + GLV_SPLIT,
     # 37 rows, one mixed add each (the scan's selects are not counted; nor
     # are a T-thread team's log2(T) joining adds: a choice of the kernel)
     "fixedbase_digits": 37 * ADD_AFF,
@@ -225,8 +245,9 @@ OPS = {
     # X == r*Z^2, the inverse of Z, Y * (Z^-1)^3
     "schnorr_check": MODINV + 2 * SQR + 3 * MUL,
     "sha256": SHA_BLOCK,          # per block
-    # the inverse of Z, Z^-2, Z^-3, x and y; the inverse of k, r*d, k^-1*u
-    "ecdsa_finish": 2 * MODINV + SQR + 3 * MUL + 2 * SC_MUL,
+    # the inverse of Z (the trick), Z^-2, Z^-3, x and y; the inverse of k
+    # (the trick), r*d, k^-1*u
+    "ecdsa_finish": INV_TRICK_P + SQR + 3 * MUL + INV_TRICK_N + 2 * SC_MUL,
     "affine_xy": AFFINE,
     # e*d, and the negation and the sum (two 8-word carry chains)
     "muladd_n": SC_MUL + 2 * 8,
@@ -354,7 +375,9 @@ KERNEL_FUNCS = {"ecmult_glv": "ecmult_glv_kernel",
                 "rfc6979": "rfc6979_kernel",
                 "batch_digest": "batch_digest_kernel",
                 "affine_xy": "affine_xy_kernel",
-                "affine_meta": "affine_meta_kernel"}
+                "affine_meta": "affine_meta_kernel",
+                "ecdsa_prep": "ecdsa_prep_kernel",
+                "ecdsa_finish": "ecdsa_finish_kernel"}
 STACK_FREE = tuple(KERNEL_FUNCS.values())
 ECDSA_KERNELS = ("ecdsa_prep", "fixedbase_public", "ecmult_glv")
 SCHNORR_KERNELS = ("sha256_msg", "lift_x", "glv_only", "fixedbase_public",
@@ -376,11 +399,24 @@ COMB_KERNELS = {"fixedbase_digits": (cuda_gen.COMB_SCAN, False),
                 "fixedbase_public": (cuda_gen.COMB_GATHER, False)}
 MSM_KERNELS = ("msm_table", "msm_winreduce", "msm_finish")
 COMMIT_RECOVER_KERNELS = ("affine_meta", "inv_n")
-# the affine conversions' lanes a thread: the edge set's lanes (ragged for
-# every K > 1 below), the K it runs at beside the wrapper's, the K swept
+# the lanes a thread of the kernels on a batched inverse (the affine
+# conversions, ecdsa_prep, ecdsa_finish): the edge sets' lanes (ragged for
+# every K > 1 below), the K they run at beside the wrapper's, the K swept
 AFFINE_EDGE_LANES = 262144 - 35
 AFFINE_EDGE_GROUPS = (1, 2, 3, 8)
 AFFINE_SWEEP = (1, 2, 4, 8, 16)
+# the K rule of each batched-inverse kernel, and the warps an SM reported
+# for its launches
+GROUP_RULES = {"affine_xy": cuda_field.affine_group,
+               "affine_meta": cuda_field.affine_group,
+               "ecdsa_prep": cuda_scalar.prep_group,
+               "ecdsa_finish": cuda_gen.finish_group}
+# the ECDSA kernels' lane chains for bound_lat_ms: ecdsa_prep s^-1, u2 and
+# the split's three products in sequence; ecdsa_finish the inverses (Z and
+# k side by side), Z^-2, x, r*d and k^-1 (m + r d); scalar products priced
+# as field products (the same 8x8 words, lighter folds: a floor)
+PREP_LAT_MUL = 4
+FINISH_LAT_MUL = 3
 # gej_sum's edge sets: these lane counts, and two lanes P, -P
 SUM_EDGE_LANES = (1, 2, 3, 65, 1024 + 37, 262144)
 MSM_POINTS = 1 << 20              # bench.py's msm_points_per_s shape
@@ -724,6 +760,11 @@ def bound_lat_ms(name: str, t: dict, lat: dict) -> float:
     if name in ("affine_xy", "affine_meta"):
         chain = lat["lat_inv_ms"] + lat["lat_sqr_ms"] + 3 * lat["lat_mul_ms"]
         return chain + (lat["lat_jacobi_ms"] if name == "affine_meta" else 0)
+    if name == "ecdsa_prep":
+        return lat["lat_inv_ms"] + PREP_LAT_MUL * lat["lat_mul_ms"]
+    if name == "ecdsa_finish":
+        return (lat["lat_inv_ms"] + lat["lat_sqr_ms"]
+                + FINISH_LAT_MUL * lat["lat_mul_ms"])
     if name == "msm_finish":
         nwin = t["nwin"]
         nblk = t["x"].shape[1] // nwin
@@ -1738,6 +1779,55 @@ def affine_edge_set(R, group: int) -> dict:
     return dict(R=(x, y, z), group=group)
 
 
+def prep_edge_set(t, group: int) -> dict:
+    """ecdsa_prep's operands for one K: the verify path's m, r, s cut to
+    AFFINE_EDGE_LANES, with s = 0 at the first, a middle and the last slot
+    of thread 5's group (its lanes 5, 5 + S, ... for S = ceil(B / K)
+    threads) and on thread 7's whole group, s = 1 on lane 9, n - 1 on lane
+    10, m = 0 on lane 11."""
+    m, r, s = (t[k][:, :AFFINE_EDGE_LANES].contiguous()
+               for k in ("m", "r", "s"))
+    lanes = s.shape[1]
+    S = -(-lanes // group)
+    col = {v: torch.tensor(_limbs(v), dtype=torch.int32, device=s.device)
+           for v in (0, 1, hc.N - 1)}
+    for slot in (0, group // 2, group - 1):
+        s[:, 5 + slot * S] = col[0]
+    for lane in range(7, lanes, S):
+        s[:, lane] = col[0]
+    s[:, 9], s[:, 10], m[:, 11] = col[1], col[hc.N - 1], col[0]
+    return dict(m=m, r=r, s=s, group=group)
+
+
+def finish_edge_set(t, group: int) -> dict:
+    """ecdsa_finish's operands for one K: the sign path's R, k, m, d cut to
+    AFFINE_EDGE_LANES, with z = 0 at the first, a middle and the last slot
+    of thread 5's group and on thread 7's whole group, z = p on lane 9 and
+    p + 1 in thread 9's next slot (lane 10 for K = 1); k = 0 at thread 6's
+    three slots and on thread 8's whole group; m = 0 on lane 11; R = (x, y,
+    1) with x in [n, p) on lane 12 (r's overflow: recovery id bit 1)."""
+    x, y, z, k, m, d = (c[:, :AFFINE_EDGE_LANES].contiguous()
+                        for c in (*t["gjac"], t["k"], t["m"], t["d"]))
+    lanes = z.shape[1]
+    S = -(-lanes // group)
+    bx = _bit1_r() + hc.N
+    by = pow((bx ** 3 + 7) % hc.P, (hc.P + 1) // 4, hc.P)
+    col = {v: torch.tensor(_limbs(v), dtype=torch.int32, device=z.device)
+           for v in (0, 1, hc.P, hc.P + 1, bx, by)}
+    for slot in (0, group // 2, group - 1):
+        z[:, 5 + slot * S] = col[0]
+        k[:, 6 + slot * S] = col[0]
+    for lane in range(7, lanes, S):
+        z[:, lane] = col[0]
+    for lane in range(8, lanes, S):
+        k[:, lane] = col[0]
+    z[:, 9] = col[hc.P]
+    z[:, 9 + S if 9 + S < lanes else 10] = col[hc.P + 1]
+    m[:, 11] = col[0]
+    x[:, 12], y[:, 12], z[:, 12] = col[bx], col[by], col[1]
+    return dict(gjac=(x, y, z), k=k, m=m, d=d, group=group)
+
+
 def sum_edge_sets(x, y, z, inf):
     """gej_sum's edge sets from a tally operand of 262,144 lanes: the first
     B lanes for each of SUM_EDGE_LANES, with lane 1 = lane 0 (P + P),
@@ -1807,8 +1897,10 @@ def run_pair(name, t, use_ref: bool):
         f = cuda_field.mulmod_chain_ref if use_ref else cuda_field.mulmod_chain
         return (f(t["px"], t["py"], t.get("chain", CHAIN_N)),)
     if name == "ecdsa_prep":
-        f = cuda_scalar.ecdsa_prep_ref if use_ref else cuda_scalar.ecdsa_prep
-        return f(t["m"], t["r"], t["s"])
+        if use_ref:
+            return cuda_scalar.ecdsa_prep_ref(t["m"], t["r"], t["s"])
+        return cuda_scalar.ecdsa_prep(t["m"], t["r"], t["s"],
+                                      group=t.get("group"))
     if name == "fixedbase_digits":
         f = (cuda_gen.fixedbase_digits_ref if use_ref
              else cuda_gen.fixedbase_digits)
@@ -1843,9 +1935,11 @@ def run_pair(name, t, use_ref: bool):
         f = cuda_scalar.glv_only_ref if use_ref else cuda_scalar.glv_only
         return f(t["e"])
     if name == "ecdsa_finish":
-        f = (cuda_gen.ecdsa_sign_finish_ref if use_ref
-             else cuda_gen.ecdsa_sign_finish)
-        return f(*t["gjac"], t["k"], t["m"], t["d"])
+        if use_ref:
+            return cuda_gen.ecdsa_sign_finish_ref(*t["gjac"], t["k"], t["m"],
+                                                  t["d"])
+        return cuda_gen.ecdsa_sign_finish(*t["gjac"], t["k"], t["m"], t["d"],
+                                          group=t.get("group"))
     if name == "affine_xy":
         if use_ref:
             return cuda_gen.affine_xy_ref(*t["R"])
@@ -2216,14 +2310,28 @@ def main() -> int:
             record(name, f"{AFFINE_EDGE_LANES} lanes, edge set, K = {group}"
                    + (" (the wrapper's)" if group == chosen else ""), err,
                    plain_ms)
-    for name in ("affine_xy", "affine_meta"):
-        results[name].update({f"group_{n}": cuda_field.affine_group(n, sms)
+    # ecdsa_prep and ecdsa_finish (K lanes a thread on a batched inverse,
+    # csrc/batch_inv.cuh): their edge sets at the wrapper's K and at K = 1,
+    # 2, 3 and 8
+    for name, make, t in (("ecdsa_prep", prep_edge_set, tensors[sizes[1]]),
+                          ("ecdsa_finish", finish_edge_set,
+                           gtensors[sizes[1]])):
+        chosen = GROUP_RULES[name](AFFINE_EDGE_LANES, sms)
+        for group in sorted({chosen, *AFFINE_EDGE_GROUPS}):
+            err, plain_ms = compare(name, make(t, group))
+            record(name, f"{AFFINE_EDGE_LANES} lanes, edge set, K = {group}"
+                   + (" (the wrapper's)" if group == chosen else ""), err,
+                   plain_ms)
+    for name, rule in GROUP_RULES.items():
+        results[name].update({f"group_{n}": rule(n, sms)
                               for n in (*sizes, ragged)})
     undecided = cuda_field.jacobi_undecided(dev, reset=True)
     results["affine_meta"]["jacobi_undecided_checks"] = undecided
-    emit("kernel_check", name="affine_meta", jacobi_undecided=undecided,
-         groups={n: cuda_field.affine_group(n, sms)
-                 for n in (*sizes, ragged, AFFINE_EDGE_LANES)})
+    emit("kernel_check", name="affine_meta", jacobi_undecided=undecided)
+    emit("kernel_check", name="batched_inverse_groups",
+         groups={name: {n: rule(n, sms)
+                        for n in (*sizes, ragged, AFFINE_EDGE_LANES)}
+                 for name, rule in GROUP_RULES.items()})
     bad = [k for k, v in results.items() if not v["match"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -2697,14 +2805,17 @@ def main() -> int:
             emit("timing", name=name + "_teams", lanes=n, warps_per_sm=warps,
                  ms_by_team=by_team, chosen=chosen,
                  chosen_within_10pct=by_team[chosen] <= 1.1 * best)
-    # the affine conversions: their warps an SM, integer-rate and latency
-    # bounds, and the lanes a thread (K) swept at both sizes on their
-    # main-path operands, each K's outputs held against those of the K the
-    # wrapper picks (held against the plain version in phase 3), 15 runs
-    # each
+    # the kernels on a batched inverse (the affine conversions, ecdsa_prep,
+    # ecdsa_finish): their warps an SM, integer-rate and latency bounds, and
+    # the lanes a thread (K) swept at both sizes on their main-path
+    # operands, each K's outputs held against those of the K the wrapper
+    # picks (held against the plain version in phase 3), 15 runs each
     for name, tsets, warps in (
             ("affine_xy", sign_sets["affine_xy"], lib.secp_affine_xy_warps()),
-            ("affine_meta", ptensors, lib.secp_affine_meta_warps())):
+            ("affine_meta", ptensors, lib.secp_affine_meta_warps()),
+            ("ecdsa_prep", tensors, lib.secp_ecdsa_prep_warps()),
+            ("ecdsa_finish", sign_sets["ecdsa_finish"],
+             lib.secp_ecdsa_finish_warps())):
         res = results[name]
         res["warps_per_sm"] = warps
         res["bound_lat_ms"] = bound_lat_ms(name, {}, lat)

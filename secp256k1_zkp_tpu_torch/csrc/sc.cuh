@@ -6,6 +6,11 @@
 // recode_signed.  Reduction uses 2^256 === red (mod n), red = 2^256 - n
 // (129 bits: five words, the top one 1), folded 512 -> 385 -> 259 -> 257
 // bits as the reference's 4x64 scalar reduce does.
+//
+// As in fe.cuh, the core is force-inlined and by reference (sc_mul_to,
+// sc_glv_split_to: nothing passes through a call, nothing goes to the
+// stack); the by-value sc_mul and the pointer form of sc_glv_split are
+// __noinline__ wrappers kept for the kernels that call them.
 #pragma once
 #include "consts.cuh"
 
@@ -64,10 +69,17 @@ SECP_INLINE sc sc_reduce512(const uint32_t* t) {
     return out;
 }
 
-SECP_NOINLINE sc sc_mul(sc a, sc b) {
+// r = a * b (weak); r may alias an operand
+SECP_INLINE void sc_mul_to(sc& r, const sc& a, const sc& b) {
     uint32_t t[16];
     bn_mul<8, 8>(t, a.v, b.v);
-    return sc_reduce512(t);
+    r = sc_reduce512(t);
+}
+
+SECP_NOINLINE sc sc_mul(sc a, sc b) {
+    sc r;
+    sc_mul_to(r, a, b);
+    return r;
 }
 
 // (a + b) mod n, canonical (a, b weak)
@@ -129,8 +141,9 @@ SECP_INLINE void sc_mul_shift384_round(uint32_t* res, const sc& k,
 // k (canonical) -> a1, neg1, a2, neg2 with k === s1*a1 + lambda*s2*a2
 // (mod n), s_i = (-1)^neg_i, a_i < 2^128 (four words each).  The
 // algorithm of the reference's scalar_split_lambda.
-SECP_NOINLINE void sc_glv_split(sc k, uint32_t* a1, uint32_t* neg1,
-                                uint32_t* a2, uint32_t* neg2) {
+SECP_INLINE void sc_glv_split_to(const sc& k, uint32_t (&a1)[4],
+                                 uint32_t& neg1, uint32_t (&a2)[4],
+                                 uint32_t& neg2) {
     const uint32_t G1[8] = SECP_G1_WORDS, G2[8] = SECP_G2_WORDS;
     const uint32_t MB1[4] = SECP_MINUS_B1_WORDS, MB2[8] = SECP_MINUS_B2_WORDS;
     const uint32_t LAM[8] = SECP_LAMBDA_WORDS, NH[8] = SECP_N_HALF_WORDS;
@@ -149,15 +162,23 @@ SECP_NOINLINE void sc_glv_split(sc k, uint32_t* a1, uint32_t* neg1,
     sc lam;
 #pragma unroll
     for (int i = 0; i < 8; ++i) lam.v[i] = LAM[i];
-    sc lr2 = sc_canon(sc_mul(r2, lam));
-    sc r1 = sc_add(k, sc_neg(lr2));         // k - lambda*r2
-    uint32_t n1 = sc_gt(r1, NH), n2 = sc_gt(r2, NH);
-    sc m1 = select256(n1, sc_neg(r1), r1);
-    sc m2 = select256(n2, sc_neg(r2), r2);
+    sc lr2;
+    sc_mul_to(lr2, r2, lam);
+    sc r1 = sc_add(k, sc_neg(sc_canon(lr2)));   // k - lambda*r2
+    neg1 = sc_gt(r1, NH);
+    neg2 = sc_gt(r2, NH);
+    sc m1 = select256(neg1, sc_neg(r1), r1);
+    sc m2 = select256(neg2, sc_neg(r2), r2);
 #pragma unroll
     for (int i = 0; i < 4; ++i) { a1[i] = m1.v[i]; a2[i] = m2.v[i]; }
-    *neg1 = n1;
-    *neg2 = n2;
+}
+
+SECP_NOINLINE void sc_glv_split(sc k, uint32_t* a1, uint32_t* neg1,
+                                uint32_t* a2, uint32_t* neg2) {
+    uint32_t b1[4], b2[4];
+    sc_glv_split_to(k, b1, *neg1, b2, *neg2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { a1[i] = b1[i]; a2[i] = b2[i]; }
 }
 
 // NWORDS 32-bit words (value < 2^NBITS) -> ceil((NBITS+1)/W) MSB-first

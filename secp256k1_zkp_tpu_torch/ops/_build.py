@@ -40,7 +40,8 @@ _U32 = ctypes.c_uint32
 # name -> argtypes (pointers and the stream as c_void_p, sizes as c_int)
 _SIGNATURES = {
     "secp_mulmod_chain": [_VP, _VP, _VP, _INT, _INT, _VP],
-    "secp_ecdsa_prep": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "secp_ecdsa_prep": [_VP] * 6 + [_INT, _INT, _VP],
+    "secp_ecdsa_prep_warps": [],
     "secp_fixedbase": [_VP] * 6 + [_INT] * 3 + [_VP],
     "secp_fixedbase_warps": [_INT] * 2,
     "secp_ecmult_glv": [_VP] * 13 + [_INT, _INT, _VP, _VP],
@@ -55,7 +56,8 @@ _SIGNATURES = {
     "secp_rfc6979": [_VP, _VP, _VP, _INT, _INT, _VP],
     "secp_batch_digest": [_VP] * 6 + [_INT, _VP],
     "secp_sha256_warps": [_INT],
-    "secp_ecdsa_finish": [_VP] * 9 + [_INT, _VP],
+    "secp_ecdsa_finish": [_VP] * 9 + [_INT, _INT, _VP],
+    "secp_ecdsa_finish_warps": [],
     "secp_affine_xy": [_VP] * 5 + [_INT, _INT, _VP],
     "secp_affine_xy_warps": [],
     "secp_muladd_n": [_VP] * 5 + [_INT, _VP],

@@ -273,23 +273,40 @@ def schnorr_check(x, y, z, inf, rx):
 # ---------------------------------------------------------------------------
 
 
-# lanes a thread of the affine conversions (K: one inverse per K lanes,
-# csrc/affine.cuh) and the warps an SM the rule aims for (the sweep of
-# chip_smoke.py, PERF.md)
-AFFINE_GROUPS = (1, 2, 4, 8)
+# lanes a thread of the kernels on a batched inverse (K: one inverse per K
+# lanes, csrc/affine.cuh, csrc/batch_inv.cuh), and the warps an SM the
+# affine conversions' rule aims for (the sweep of chip_smoke.py, PERF.md)
+LANE_GROUPS = (1, 2, 4, 8)
 AFFINE_WARPS = 6
 
 
-def affine_group(lanes: int, sms: int) -> int:
-    """Lanes a thread of ``affine_xy`` / ``affine_meta`` (K): the most of
-    ``AFFINE_GROUPS`` for which ceil(B / K) threads still fill
-    ``AFFINE_WARPS`` warps on each of the card's ``sms`` SMs; 1 while B
-    threads do not.  Thread t takes the lanes t, t + S, ... (S the thread
-    count) and inverts their product once."""
+def lane_group(lanes: int, sms: int, warps: int) -> int:
+    """Lanes a thread (K) of a kernel on a batched inverse: the most of
+    ``LANE_GROUPS`` for which ceil(B / K) threads still fill ``warps``
+    warps on each of the card's ``sms`` SMs; 1 while B threads do not.
+    Thread t takes the lanes t, t + S, ... (S the thread count) and
+    inverts their product once."""
     group = 1
-    while (2 * group <= AFFINE_GROUPS[-1]
-           and -(-lanes // (2 * group)) >= sms * 32 * AFFINE_WARPS):
+    while (2 * group <= LANE_GROUPS[-1]
+           and -(-lanes // (2 * group)) >= sms * 32 * warps):
         group *= 2
+    return group
+
+
+def affine_group(lanes: int, sms: int) -> int:
+    """K of ``affine_xy`` / ``affine_meta``: :func:`lane_group` at
+    ``AFFINE_WARPS``."""
+    return lane_group(lanes, sms, AFFINE_WARPS)
+
+
+def group_arg(name: str, lanes: int, device, warps: int,
+              group: int | None) -> int:
+    """A batched-inverse kernel's K: ``group``, or :func:`lane_group`'s at
+    ``warps`` on ``device`` where it is None; raises below 1."""
+    if group is None:
+        group = lane_group(lanes, _build.sm_count(str(device)), warps)
+    if group < 1:
+        raise ValueError(f"{name}: expected group >= 1, got {group}")
     return group
 
 
@@ -299,11 +316,7 @@ def affine_operands(name: str, x, y, z, group: int | None):
     lanes = _build.check_rows(x, LIMBS, f"{name} x")
     _build.check_rows(y, LIMBS, f"{name} y", lanes)
     _build.check_rows(z, LIMBS, f"{name} z", lanes)
-    if group is None:
-        group = affine_group(lanes, _build.sm_count(str(x.device)))
-    if group < 1:
-        raise ValueError(f"{name}: expected group >= 1, got {group}")
-    return lanes, group
+    return lanes, group_arg(name, lanes, x.device, AFFINE_WARPS, group)
 
 
 @lru_cache(maxsize=8)

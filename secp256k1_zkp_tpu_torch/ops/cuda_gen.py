@@ -36,7 +36,8 @@ from . import _build
 from ..utils import hostcurve as hc
 from .cuda_divsteps import inv_limbs16
 from .cuda_field import (I64, LIMBS, MASK16, affine_operands,
-                         affine_plain, canon_p, const_rows, limbs16, ripple)
+                         affine_plain, canon_p, const_rows, group_arg,
+                         lane_group, limbs16, ripple)
 from .cuda_group import (FE, fe_const, fe_neg, fe_select, fe_weak,
                          jp_add_aff, jp_inf)
 from .cuda_scalar import (N_ORDER, NW7, _RED, _N_HALF, _add_mod_n,
@@ -295,7 +296,20 @@ def ecdsa_sign_finish_ref(x, y, z, k, m, d):
     return r.to(I32), s.to(I32), recid.to(I32), ok
 
 
-def ecdsa_sign_finish(x, y, z, k, m, d):
+# the warps an SM the rule of ecdsa_sign_finish's lanes a thread aims for:
+# its K sweep (chip_smoke.py, PERF.md) is fastest at K = 1 for 16,384
+# lanes (3.9 warps an SM) and at K = 8 for 262,144 (7.8), not at K = 16
+# (3.9)
+FINISH_WARPS = 6
+
+
+def finish_group(lanes: int, sms: int) -> int:
+    """K of ``ecdsa_sign_finish``: :func:`cuda_field.lane_group` at
+    ``FINISH_WARPS``."""
+    return lane_group(lanes, sms, FINISH_WARPS)
+
+
+def ecdsa_sign_finish(x, y, z, k, m, d, group: int | None = None):
     """ECDSA signing after R = k*G: jacobian R ``[16, B]`` and canonical
     k, m, d ``[16, B]`` int32 limbs -> (r ``[16, B]``, s ``[16, B]``
     canonical low-S, recid ``[B]`` int32, ok ``[B]`` bool).
@@ -303,12 +317,16 @@ def ecdsa_sign_finish(x, y, z, k, m, d):
     r = x(R) mod n, s = k^-1 (m + r d) mod n, negated where it exceeds
     (n-1)/2; recid = ((x(R) >= n ? 2 : 0) | y(R) odd) ^ negated; ok =
     r != 0 and s != 0.  CUDA tensors go through the hand-written kernel
-    (``csrc/ecdsa_finish.cu``); CPU tensors through the plain version."""
+    (``csrc/ecdsa_finish.cu``: ``group`` lanes a thread with one inverse
+    of Z and one of k for them, None taking :func:`finish_group`'s K);
+    CPU tensors through the plain version."""
     if not x.is_cuda:
         return ecdsa_sign_finish_ref(x, y, z, k, m, d)
     lanes = _build.check_rows(x, LIMBS, "ecdsa_sign_finish x")
     for name, t in (("y", y), ("z", z), ("k", k), ("m", m), ("d", d)):
         _build.check_rows(t, LIMBS, f"ecdsa_sign_finish {name}", lanes)
+    group = group_arg("ecdsa_sign_finish", lanes, x.device, FINISH_WARPS,
+                      group)
     r = torch.empty_like(x)
     s = torch.empty_like(x)
     meta = torch.empty((2, lanes), dtype=I32, device=x.device)
@@ -317,7 +335,7 @@ def ecdsa_sign_finish(x, y, z, k, m, d):
     _build.check(lib.secp_ecdsa_finish(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), k.data_ptr(),
         m.data_ptr(), d.data_ptr(), r.data_ptr(), s.data_ptr(),
-        meta.data_ptr(), lanes, _build.stream_ptr()), "ecdsa_finish")
+        meta.data_ptr(), lanes, group, _build.stream_ptr()), "ecdsa_finish")
     return r, s, meta[0], meta[1] != 0
 
 

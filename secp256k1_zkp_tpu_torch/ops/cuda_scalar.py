@@ -18,8 +18,8 @@ import torch
 
 from . import _build
 from .cuda_divsteps import inv_limbs16
-from .cuda_field import (I64, LIMBS, MASK16, const_rows, limbs16, mul_cols,
-                         ripple)
+from .cuda_field import (I64, LIMBS, MASK16, const_rows, group_arg,
+                         lane_group, limbs16, mul_cols, ripple)
 
 N_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 _RED = 2 ** 256 - N_ORDER                       # 129 bits: 9 limbs, top = 1
@@ -215,7 +215,20 @@ def ecdsa_prep_ref(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor):
     return digs.to(i32), gdigs.to(i32), flags.to(i32)
 
 
-def ecdsa_prep(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor):
+# the warps an SM the rule of ecdsa_prep's lanes a thread aims for: its K
+# sweep (chip_smoke.py, PERF.md) is fastest at K = 1 for 16,384 lanes (3.9
+# warps an SM) and at K = 8 for 262,144 (7.8), not at K = 16 (3.9)
+PREP_WARPS = 6
+
+
+def prep_group(lanes: int, sms: int) -> int:
+    """K of ``ecdsa_prep``: :func:`cuda_field.lane_group` at
+    ``PREP_WARPS``."""
+    return lane_group(lanes, sms, PREP_WARPS)
+
+
+def ecdsa_prep(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+               group: int | None = None):
     """Fused ECDSA verify prep on ``[16, B]`` int32 limb-major canonical
     scalars.
 
@@ -226,12 +239,15 @@ def ecdsa_prep(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor):
     s = 0 gives s^-1 = 0 (all-zero digits).
 
     CUDA tensors go through the hand-written kernel
-    (``csrc/ecdsa_prep.cu``); CPU tensors through the plain version."""
+    (``csrc/ecdsa_prep.cu``: ``group`` lanes a thread with one inverse of
+    s for them, None taking :func:`prep_group`'s K); CPU tensors through
+    the plain version."""
     if not m.is_cuda:
         return ecdsa_prep_ref(m, r, s)
     lanes = _build.check_rows(m, LIMBS, "ecdsa_prep m")
     _build.check_rows(r, LIMBS, "ecdsa_prep r", lanes)
     _build.check_rows(s, LIMBS, "ecdsa_prep s", lanes)
+    group = group_arg("ecdsa_prep", lanes, m.device, PREP_WARPS, group)
     digs = torch.empty((2 * NW5, lanes), dtype=torch.int32, device=m.device)
     gdigs = torch.empty((NW7, lanes), dtype=torch.int32, device=m.device)
     flags = torch.empty((2, lanes), dtype=torch.int32, device=m.device)
@@ -239,8 +255,8 @@ def ecdsa_prep(m: torch.Tensor, r: torch.Tensor, s: torch.Tensor):
     _build.count_launch("ecdsa_prep")
     _build.check(lib.secp_ecdsa_prep(
         m.data_ptr(), r.data_ptr(), s.data_ptr(), digs.data_ptr(),
-        gdigs.data_ptr(), flags.data_ptr(), lanes, _build.stream_ptr()),
-        "ecdsa_prep")
+        gdigs.data_ptr(), flags.data_ptr(), lanes, group,
+        _build.stream_ptr()), "ecdsa_prep")
     return digs, gdigs, flags
 
 

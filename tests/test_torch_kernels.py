@@ -294,6 +294,8 @@ def _b0_harness(tmp_path):
     lib.b0_affine.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32]
     lib.b0_affine.restype = u32
     lib.b0_jacobi.argtypes = [vp, vp, i32]
+    lib.b0_ecdsa_finish.argtypes = [vp] * 9 + [i32, i32]
+    lib.b0_ecdsa_prep.argtypes = [vp] * 6 + [i32, i32]
     return lib
 
 
@@ -809,6 +811,120 @@ def _check_b0_affine(lib):
     assert out.tolist() == [0, 1, -1] + [1] * 200 + [-1] * 200
 
 
+# the batched-inverse kernels' launches: (B, K), ragged for every K > 1
+BATCH_INV_LAUNCHES = ((29, 1), (29, 2), (29, 3), (29, 8), (64, 8))
+
+
+def _group_lanes(B, K, thread, slots=None):
+    """The lanes of ``thread``'s group (t, t + S, ... below B, S =
+    ceil(B / K)): all of them, or those at ``slots`` (-1: the last)."""
+    S = -(-B // K)
+    lanes = list(range(thread, B, S))[:K]
+    return lanes if slots is None else [lanes[i] for i in slots
+                                        if i < len(lanes)]
+
+
+def _decode_digits(rows, w):
+    acc = 0
+    for d in rows:
+        acc = acc * (1 << w) + (-(d & 0xFF) if d >> 8 else d & 0xFF)
+    return acc
+
+
+def _check_b0_ecdsa_prep(lib):
+    """ecdsa_prep.cu's thread groups (batch_inv.cuh over n) on every
+    thread of a launch against Python ints (the digit rows decode to u1 =
+    m / s and to u2 = r / s's GLV halves; s = 0 gives zero rows) and the
+    plain version, at BATCH_INV_LAUNCHES: s = 0 at the first, a middle
+    and the last slot of thread 0's group and on thread 2's whole group;
+    s = 1 and n - 1; m = 0."""
+    rng = np.random.default_rng(21)
+    for B, K in BATCH_INV_LAUNCHES:
+        m, r, s = (rand(rng, N, B) for _ in range(3))
+        for lane in (_group_lanes(B, K, 0, (0, K // 2, -1))
+                     + _group_lanes(B, K, 2)):
+            s[lane] = 0
+        s[1], s[3], s[5], m[4] = 1, N - 1, N - 1, 0
+        mr, rr, sr = (rows_np(v) for v in (m, r, s))
+        digs = np.zeros((52, B), np.uint32)
+        gdigs = np.zeros((37, B), np.uint32)
+        flags = np.zeros((2, B), np.uint32)
+        lib.b0_ecdsa_prep(mr.ctypes.data, rr.ctypes.data, sr.ctypes.data,
+                          digs.ctypes.data, gdigs.ctypes.data,
+                          flags.ctypes.data, B, K)
+        ref = TS.ecdsa_prep_ref(*(torch.from_numpy(a.astype(np.int64))
+                                  for a in (mr, rr, sr)))
+        for got, want in zip((digs, gdigs, flags), ref):
+            assert got.astype(np.int64).tolist() == want.tolist(), (B, K)
+        for j in range(B):
+            si = pow(s[j], -1, N) if s[j] else 0
+            h1 = _decode_digits(digs[:26, j].tolist(), 5)
+            h2 = _decode_digits(digs[26:, j].tolist(), 5)
+            h1, h2 = (-h if f else h for h, f in zip((h1, h2), flags[:, j]))
+            assert _decode_digits(gdigs[:, j].tolist(), 7) == m[j] * si % N
+            assert (h1 + TS.LAMBDA * h2) % N == r[j] * si % N, (B, K, j)
+            if not s[j]:
+                assert not digs[:, j].any() and not gdigs[:, j].any()
+
+
+def _check_b0_ecdsa_finish(lib):
+    """ecdsa_finish.cu's thread groups (batch_inv.cuh: Z over p and k over
+    n in one pass) on every thread of a launch against Python ints (r = x
+    mod n with the overflow, s = k^-1 (m + r d) low-S, recid, ok) and the
+    plain version, at BATCH_INV_LAUNCHES: Z = 0 at the first, a middle and
+    the last slot of thread 0's group and on thread 2's whole group, Z =
+    p and p + 1; k = 0 at thread 1's three slots and on the last thread's
+    whole group; an affine x in [n, p) (r's overflow: recid bit 1); m =
+    0; high-S and low-S lanes; the rest random."""
+    rng = np.random.default_rng(22)
+    _, (bx, by) = _point_with_x_at_least_n()
+    for B, K in BATCH_INV_LAUNCHES:
+        S = -(-B // K)
+        ax, ay = rand(rng, P, B), rand(rng, P, B)
+        ax[5], ay[5] = bx, by
+        zs = [z or 1 for z in rand(rng, P, B)]
+        xs = [a * z * z % P for a, z in zip(ax, zs)]
+        ys = [a * pow(z, 3, P) % P for a, z in zip(ay, zs)]
+        for lane in (_group_lanes(B, K, 0, (0, K // 2, -1))
+                     + _group_lanes(B, K, 2)):
+            zs[lane] = 0
+        zs[3] = P
+        zs[3 + S if 3 + S < B else 4] = P + 1
+        k, m, d = (rand(rng, N, B) for _ in range(3))
+        for lane in (_group_lanes(B, K, 1, (0, K // 2, -1))
+                     + _group_lanes(B, K, S - 1)):
+            k[lane] = 0
+        m[6] = 0
+        ins = [rows_np(v) for v in (xs, ys, zs, k, m, d)]
+        r = np.zeros((16, B), np.uint32)
+        s = np.zeros((16, B), np.uint32)
+        meta = np.zeros((2, B), np.uint32)
+        lib.b0_ecdsa_finish(*(a.ctypes.data for a in ins), r.ctypes.data,
+                            s.ctypes.data, meta.ctypes.data, B, K)
+        ref = TGEN.ecdsa_sign_finish_ref(
+            *(torch.from_numpy(a.astype(np.int64)) for a in ins))
+        assert r.astype(np.int64).tolist() == ref[0].tolist(), (B, K)
+        assert s.astype(np.int64).tolist() == ref[1].tolist(), (B, K)
+        assert meta[0].astype(np.int64).tolist() == ref[2].tolist()
+        assert meta[1].astype(bool).tolist() == ref[3].tolist()
+        highs = set()
+        for j in range(B):
+            zi = pow(zs[j] % P, -1, P) if zs[j] % P else 0
+            x, y = xs[j] * zi * zi % P, ys[j] * zi ** 3 % P
+            ovf = x >= N
+            rv = x - N if ovf else x
+            sv = (pow(k[j], -1, N) if k[j] else 0) * (m[j] + rv * d[j]) % N
+            high = sv > (N - 1) // 2
+            sv = N - sv if high else sv
+            want = (rv, sv, ((2 * ovf) | (y & 1)) ^ high, rv != 0 and sv != 0)
+            got = (ints(r[:, j:j + 1])[0], ints(s[:, j:j + 1])[0],
+                   int(meta[0, j]), bool(meta[1, j]))
+            assert got == want, (B, K, j)
+            if want[3]:
+                highs.add(high)
+        assert meta[0, 5] >> 1 == 1 and highs == {True, False}, (B, K)
+
+
 def test_cuda_constants_header(tmp_path):
     """csrc/consts.cuh carries the same curve constants as the Python
     modules and the JAX package; and the B0 field and group core of
@@ -819,10 +935,12 @@ def test_cuda_constants_header(tmp_path):
     lane (csrc/msm.cuh), msm_finish's block and gej_sum's blocks (the
     folds and trees of csrc/group.cuh), the SHA-256 kernels' staging,
     padding, RFC6979 lane and batch tree (csrc/sha256.cuh), lift_x's
-    lane on the inlined sqrt chain, and the affine conversions' thread
-    groups with their batched inverse and Jacobi symbol (csrc/affine.cuh,
-    modinv.cuh); the PTX forms are held against the plain PyTorch versions
-    on the card by chip_smoke.py."""
+    lane on the inlined sqrt chain, the affine conversions' thread groups
+    with their batched inverse and Jacobi symbol (csrc/affine.cuh,
+    modinv.cuh), and the thread groups of ECDSA's verify prep and sign
+    finish on the batched inverse over p and n (csrc/batch_inv.cuh); the
+    PTX forms are held against the plain PyTorch versions on the card by
+    chip_smoke.py."""
     lib = _b0_harness(tmp_path)
     _check_b0_field(lib)
     _check_b0_group(lib)
@@ -835,6 +953,8 @@ def test_cuda_constants_header(tmp_path):
     _check_b0_batch_digest(lib)
     _check_b0_lift_x(lib)
     _check_b0_affine(lib)
+    _check_b0_ecdsa_prep(lib)
+    _check_b0_ecdsa_finish(lib)
     text = (Path(_build.SRC_DIR) / "consts.cuh").read_text()
 
     def words(name):

@@ -28,6 +28,11 @@
 // lanes a thread, one inverse for the group, the prefixes in the x
 // output's rows), compiled from the kernels' own files and run for every
 // thread of a launch, and modinv.cuh's Jacobi symbol alone.
+//
+// And ecdsa_finish.cu's and ecdsa_prep.cu's thread groups (batch_inv.cuh:
+// K lanes a thread, one inverse over p and one over n for ecdsa_finish,
+// one over n for ecdsa_prep, the prefixes in the outputs' rows), compiled
+// from the kernels' own files and run for every thread of a launch.
 #include <string.h>
 
 #include <vector>
@@ -35,6 +40,8 @@
 #include "affine_meta.cu"
 #include "affine_xy.cu"
 #include "comb.cuh"
+#include "ecdsa_finish.cu"
+#include "ecdsa_prep.cu"
 #include "lift_x.cu"
 #include "msm.cuh"
 #include "sha256.cuh"
@@ -393,6 +400,24 @@ uint32_t b0_affine(int meta, const uint32_t* x, const uint32_t* y,
             affine_xy_group(x, y, z, ax, ay, B, K, t);
     }
     return undecided;
+}
+
+// a launch of ecdsa_finish.cu with K lanes a thread on x, y, z, k, m, d
+// [16, B] limb-major: r, s [16, B], meta [2, B]
+void b0_ecdsa_finish(const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                     const uint32_t* k, const uint32_t* m, const uint32_t* d,
+                     uint32_t* r, uint32_t* s, uint32_t* meta, int B, int K) {
+    for (int t = 0; t < (B + K - 1) / K; ++t)
+        ecdsa_finish_group(x, y, z, k, m, d, r, s, meta, B, K, t);
+}
+
+// a launch of ecdsa_prep.cu with K lanes a thread on m, r, s [16, B]
+// limb-major: digs [52, B], gdigs [37, B], flags [2, B]
+void b0_ecdsa_prep(const uint32_t* m, const uint32_t* r, const uint32_t* s,
+                   uint32_t* digs, uint32_t* gdigs, uint32_t* flags, int B,
+                   int K) {
+    for (int t = 0; t < (B + K - 1) / K; ++t)
+        ecdsa_prep_group(m, r, s, digs, gdigs, flags, B, K, t);
 }
 
 // jacobi30_var of canonical x [n] (8 words each): 1, -1 or 0 (undecided)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's hashes, ``lift_x``, the affine conversions and the
-calls around them on one NVIDIA GPU.
+"""Time the port's hashes, ``lift_x``, the kernels on a batched inverse
+and the calls around them on one NVIDIA GPU.
 
     python3 time_sha.py              # from the root of a checkout
 
@@ -15,8 +15,11 @@ data the same way, at 16,384 and 262,144 lanes:
   ``schnorrsig.challenge`` (the tagged challenge hash),
   ``schnorrsig._batch_digest`` (the batch tree), the ``lift_x`` kernel on
   n and on 2n lanes (batch verify's P and R), ``affine_meta`` and
-  ``affine_xy`` (the affine conversions, at the K their wrappers pick);
-- whole calls: ``ecdsa.sign``, ``schnorrsig.sign``, ``schnorrsig.verify``,
+  ``affine_xy`` (the affine conversions), ``ecdsa_prep`` (ECDSA verify's
+  scalars) and ``ecdsa_finish`` (ECDSA sign's R, k, m, d), each at the K
+  its wrapper picks;
+- whole calls: ``ecdsa.sign``, ``ecdsa.verify``, ``schnorrsig.sign``,
+  ``schnorrsig.verify``,
   ``schnorrsig.batch_verify``, ``generator.pedersen_commit_bytes`` and
   ``ecdsa.recover`` (of the version's own signatures), the host clock
   around a call that ends in ``torch.cuda.synchronize()`` (median of 5),
@@ -38,8 +41,9 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from secp256k1_zkp_tpu_torch import context
 from secp256k1_zkp_tpu_torch.modules import ecdsa, generator, schnorrsig
-from secp256k1_zkp_tpu_torch.ops import cuda_field, cuda_gen
+from secp256k1_zkp_tpu_torch.ops import cuda_field, cuda_gen, cuda_scalar
 
 SIZES = (16384, 262144)
 
@@ -74,10 +78,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
+    base = cs.make_distinct(2048, 42)
     sbase = cs.make_schnorr_distinct(2048, 42)
     gbase = cs.make_sign_distinct(2048, 42)
     gsbase = cs.make_ssign_distinct(2048, 42)
     pbase = cs.make_pedersen_distinct(2048, 42)
+    # the sign path's blinding (sign_inputs' blinded comb operands)
+    blind = context.Context(dev).randomize(bytes(32)).blind
     emit(name="data", seconds=round(time.time() - t0, 1))
     for n in SIZES:
         gbatch = cs.make_sign_batch(gbase, n)
@@ -88,6 +95,9 @@ def main() -> int:
                               for a in cs.make_schnorr_batch(sbase, n)[:3])
         bmsgs, bsigs, bpxs = (torch.as_tensor(a).to(dev) for a in
                               cs.make_batch_verify(sbase, n)[0]["valid"])
+        emsgs, esigs, epub = (a.to(dev) for a in cs.make_batch(base, n)[:3])
+        et = cs.kernel_inputs(emsgs, esigs, epub, dev)
+        gt = cs.sign_inputs(msgs, secs, blind, dev)
         vt = cs.schnorr_inputs(vmsgs, vsigs, vpxs, dev)
         px, rx = vt["px"], vt["rx"]
         px2 = torch.cat([px, rx], 1)
@@ -101,11 +111,17 @@ def main() -> int:
             "lift_x_2n": lambda: cuda_field.lift_x(px2),
             "affine_meta": lambda: cuda_field.affine_meta(px, rx, px),
             "affine_xy": lambda: cuda_gen.affine_xy(px, rx, px),
+            "ecdsa_prep": lambda: cuda_scalar.ecdsa_prep(
+                et["m"], et["r"], et["s"]),
+            "ecdsa_finish": lambda: cuda_gen.ecdsa_sign_finish(
+                *gt["gjac"], gt["k"], gt["m"], gt["d"]),
         }
         for label, fn in steps.items():
             emit(name=label, lanes=n, ms=cs.time_ms(fn, reps=15))
         whole("ecdsa.sign", lambda: ecdsa.sign(msgs, secs, device=dev),
               lanes=n)
+        whole("ecdsa.verify", lambda: ecdsa.verify(emsgs, esigs, epub,
+                                                   device=dev), lanes=n)
         whole("schnorr.sign", lambda: schnorrsig.sign(
             smsgs, ssecs, sauxs, device=dev), lanes=n)
         whole("schnorr.verify", lambda: schnorrsig.verify(
